@@ -1,0 +1,57 @@
+"""Carry state between the JAX package and the port, as numpy.
+
+The two packages never import each other. What crosses between them — the
+nominal inputs of a batch solver, the scale vectors of a scaled NLP, the
+fields of a solve result — crosses as numpy arrays through these two
+functions, so that tests feed both solvers the same inputs and warm-start
+one from the other's result.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.ipm import IPMResult
+from .device import resolve_device
+
+_INT_FIELDS = ("status", "iterations")
+_FIELDS = ("z", "s", "lam", "zl_dual", "zu_dual", "status", "iterations",
+           "objective", "kkt_error", "mu", "delta_w")
+
+
+def inputs_from_reference(z0, zl, zu, cl, cu, *, device=None, dtype=torch.float64):
+    """``(z0, zl, zu, cl, cu)`` numpy (or array-like) -> tensors on ``device``
+    (``None`` means ``"cuda"``), ready for ``BatchSolver.run`` / ``solve``."""
+    device = resolve_device(device)
+    return tuple(
+        torch.as_tensor(np.array(a, dtype=np.float64), device=device, dtype=dtype)
+        for a in (z0, zl, zu, cl, cu)
+    )
+
+
+def result_from_reference(fields: dict, *, device=None, dtype=torch.float64) -> IPMResult:
+    """A dict of numpy arrays holding an ``IPMResult``'s fields (as the JAX
+    package returns them, batched) -> the port's :class:`IPMResult`."""
+    device = resolve_device(device)
+    out = {}
+    for name in _FIELDS:
+        a = np.array(fields[name])
+        if name in _INT_FIELDS:
+            out[name] = torch.as_tensor(a.astype(np.int32), device=device)
+        else:
+            out[name] = torch.as_tensor(a.astype(np.float64), device=device, dtype=dtype)
+    hist = fields.get("history")
+    if hist is not None:
+        hist = {k: torch.as_tensor(np.array(v), device=device) for k, v in hist.items()}
+    return IPMResult(history=hist, **out)
+
+
+def result_to_numpy(res: IPMResult) -> dict:
+    """The port's result as a dict of numpy arrays (the inverse direction)."""
+    out = {name: getattr(res, name).detach().cpu().numpy() for name in _FIELDS}
+    out["history"] = (
+        None if res.history is None
+        else {k: v.detach().cpu().numpy() for k, v in res.history.items()}
+    )
+    return out

@@ -1,0 +1,95 @@
+"""Port parity: the plain versions of the batched Cholesky / Cholesky-solve
+kernels against the JAX package's Pallas kernels run in interpret mode.
+
+On the CPU the port's wrappers take the plain PyTorch versions (the CUDA
+kernels are held against the same plain versions on the card by
+chip_smoke.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lpopc_tpu.ops import batched_linalg as ref
+from lpopc_tpu_torch.ops import batched_linalg as port
+
+# f64: same recurrence, other summation order. f32: as tests/test_batched_linalg.py
+TOL = {np.float64: 1e-9, np.float32: 5e-3}
+SHAPES = [(4, 8, np.float64), (130, 16, np.float64), (64, 24, np.float32)]
+
+
+def _spd(B, n, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n))
+    return ((A @ A.transpose(0, 2, 1) + n * np.eye(n)).astype(dtype),
+            rng.standard_normal((B, n)).astype(dtype))
+
+
+@pytest.fixture(scope="module")
+def reference():
+    out = {}
+    for B, n, dt in SHAPES:
+        K, b = _spd(B, n, dt)
+        L = ref.lane_cholesky(jnp.asarray(K), interpret=True)
+        x = ref.lane_cho_solve(L, jnp.asarray(b), interpret=True)
+        out[(B, n, dt)] = (K, b, np.asarray(L), np.asarray(x))
+    return out
+
+
+@pytest.mark.parametrize("B,n,dt", SHAPES)
+def test_lane_cholesky_matches_interpret_kernel(reference, B, n, dt):
+    K, _, L_ref, _ = reference[(B, n, dt)]
+    L = port.lane_cholesky(torch.as_tensor(K))
+    assert L.dtype == torch.as_tensor(K).dtype and L.shape == (B, n, n)
+    np.testing.assert_allclose(L.numpy(), L_ref, rtol=0, atol=TOL[dt] * np.abs(L_ref).max())
+    assert float(torch.triu(L, diagonal=1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,n,dt", SHAPES)
+def test_lane_cho_solve_matches_interpret_kernel(reference, B, n, dt):
+    _, b, L_ref, x_ref = reference[(B, n, dt)]
+    x = port.lane_cho_solve(torch.as_tensor(L_ref), torch.as_tensor(b))
+    np.testing.assert_allclose(x.numpy(), x_ref, rtol=0, atol=TOL[dt] * np.abs(x_ref).max())
+
+
+def test_non_pd_gives_nan_diagonal_without_raising():
+    K, _ = _spd(4, 8, np.float64)
+    K[2] = -K[2]
+    d_ref = np.diagonal(np.asarray(ref.lane_cholesky(jnp.asarray(K), interpret=True)),
+                        axis1=1, axis2=2)
+    d = torch.diagonal(port.lane_cholesky(torch.as_tensor(K)), dim1=1, dim2=2).numpy()
+    assert np.isnan(d[2]).all() and np.isnan(d_ref[2]).all()
+    assert np.isfinite(d[[0, 1, 3]]).all()
+
+
+def test_broadcast_factor_and_rhs():
+    K, b = _spd(5, 8, np.float64, seed=2)
+    L = port.lane_cholesky(torch.as_tensor(K))
+    bt = torch.as_tensor(b)
+    full = port.lane_cho_solve(L[:1].expand(5, -1, -1).contiguous(), bt)
+    assert torch.equal(port.lane_cho_solve(L[0], bt), full)
+    one_rhs = port.lane_cho_solve(L, bt[0])
+    assert torch.equal(one_rhs, port.lane_cho_solve(L, bt[:1].expand(5, -1).contiguous()))
+    np.testing.assert_allclose(
+        one_rhs.numpy(), np.linalg.solve(K, np.broadcast_to(b[0], (5, 8))[..., None])[..., 0],
+        atol=1e-12)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        port.lane_cholesky(torch.zeros(3, 4, 5, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        port.lane_cholesky(torch.zeros(3, 4, 4, dtype=torch.float16))
+    with pytest.raises(TypeError):
+        port.lane_cho_solve(torch.zeros(3, 4, 4, dtype=torch.float64),
+                            torch.zeros(3, 4, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        port.lane_cho_solve(torch.zeros(3, 4, 4, dtype=torch.float64),
+                            torch.zeros(3, 5, dtype=torch.float64))
+
+
+def test_cpu_tensors_count_no_kernel_launch():
+    before = (port.lane_cholesky.launches, port.lane_cho_solve.launches)
+    K, b = _spd(2, 4, np.float64)
+    port.lane_cho_solve(port.lane_cholesky(torch.as_tensor(K)), torch.as_tensor(b))
+    assert (port.lane_cholesky.launches, port.lane_cho_solve.launches) == before
