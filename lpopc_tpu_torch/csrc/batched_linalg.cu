@@ -54,7 +54,9 @@ __device__ inline T* shared_base() {
 //   phase 2: A[i][j] = col[i];  A[r][c] -= col[r] * col[c] for r >= c > j
 //   barrier
 // Only the lower triangle of the trailing block is updated: later columns
-// read nothing above the diagonal. The upper triangle is zeroed on store.
+// read nothing above the diagonal. So only the lower triangle of K is loaded
+// (K is symmetric; n(n+1)/2 of its n*n entries are read), and the upper
+// triangle is zeroed on store.
 template <typename T>
 __global__ void lane_cholesky_kernel(const T* __restrict__ K, T* __restrict__ L,
                                      int n, long long strideK) {
@@ -68,7 +70,7 @@ __global__ void lane_cholesky_kernel(const T* __restrict__ K, T* __restrict__ L,
 
     for (int idx = tid; idx < n * n; idx += nt) {
         const int r = idx / n, c = idx - r * n;
-        A[r * ld + c] = Kb[idx];
+        if (c <= r) A[r * ld + c] = Kb[idx];
     }
     __syncthreads();
 

@@ -98,7 +98,8 @@ def lane_cholesky_plain(K: torch.Tensor) -> torch.Tensor:
 
 def lane_cholesky(K: torch.Tensor) -> torch.Tensor:
     """Cholesky of a batch of SPD matrices. K: (B, n, n) -> L: (B, n, n)
-    lower-triangular, NaN where a pivot was not positive."""
+    lower-triangular, NaN where a pivot was not positive. Only the lower
+    triangle of K is read (the upper one is its mirror image)."""
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
         raise ValueError(f"lane_cholesky expects (B, n, n), got {tuple(K.shape)}")
     if K.dtype not in _SUFFIX:

@@ -1,51 +1,14 @@
-"""Interpolation operators: barycentric Lagrange and natural cubic splines.
+"""Natural cubic-spline interpolation of an initial guess onto the mesh.
 
-Counterparts of the reference's ``BarLagrangeInterp``
-(``Lpopc/src/Core/LpSolutionError.cpp:10-52``) and the cubic
-spline pair ``spline_second_derivative`` / ``spline_interpolation``
-(``LpGuessChecker.cpp:208-294``), re-designed for accelerator use:
-
-* Interpolation from a *fixed* support grid to *fixed* targets is expressed as
-  a host-precomputed dense matrix (``interpolation_matrix``), so on the
-  device interpolation is a single matmul instead of per-point loops.
-* Cubic-spline guess interpolation runs host-side between NLP solves (it is
-  not on the device hot path), implemented with a vectorized tridiagonal
-  solve.
+Counterpart of the reference's ``spline_second_derivative`` /
+``spline_interpolation`` pair (``LpGuessChecker.cpp:208-294``). It runs on the
+host when a problem is transcribed (not on the device hot path), with a
+vectorized tridiagonal solve.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from .lgr import barycentric_weights
-
-
-def interpolation_matrix(support: np.ndarray, targets: np.ndarray) -> np.ndarray:
-    """Dense (T, S) barycentric Lagrange interpolation matrix.
-
-    ``values_at_targets = M @ values_at_support``. Exact pass-through rows are
-    produced when a target coincides with a support point.
-    """
-    support = np.asarray(support, dtype=np.float64)
-    targets = np.asarray(targets, dtype=np.float64)
-    bw = barycentric_weights(support)
-    diff = targets[:, None] - support[None, :]
-    exact_rows, exact_cols = np.nonzero(np.abs(diff) < 1e-14)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        ratio = bw[None, :] / diff
-        M = ratio / np.sum(ratio, axis=1, keepdims=True)
-    for r, c in zip(exact_rows, exact_cols):
-        M[r, :] = 0.0
-        M[r, c] = 1.0
-    return M
-
-
-def barycentric_interpolate(
-    support: np.ndarray, values: np.ndarray, targets: np.ndarray
-) -> np.ndarray:
-    """Interpolate ``values`` (S,) or (S, k) sampled at ``support`` to ``targets``."""
-    return interpolation_matrix(support, targets) @ np.asarray(values)
-
 
 def _solve_tridiagonal(lower, diag, upper, rhs):
     """Thomas algorithm; rhs may be (n,) or (n, k)."""

@@ -9,12 +9,13 @@ composite (multi-segment) phase operators — all re-derived from scratch.
 Design notes
 ------------
 * Nodes/weights/matrices are computed **on host** in extended precision (the
-  native ``long double`` C++ backend in ``lpopc_tpu_torch/native/lgr_native.cpp``,
-  with a ``numpy.longdouble`` fallback) and memoized per degree, exactly
-  because they are solve-time constants: they enter the device computation as
-  constant tensors, so their construction cost and precision never touch the
-  device. The shared library is built on first use into the package's own
-  ``build/`` directory (git-ignored).
+  native ``long double`` C++ backend in ``lpopc_tpu_torch/native/lgr_native.cpp``)
+  and memoized per degree, exactly because they are solve-time constants: they
+  enter the device computation as constant tensors, so their construction cost
+  and precision never touch the device. The shared library is built with
+  ``g++`` on first use into the package's own ``build/`` directory
+  (git-ignored). There is one backend: a build that fails raises, so nodes and
+  weights are the same bits on every machine.
 * Composite phase operators are built as **dense** matrices. The reference
   keeps a global sparse triplet matrix (``RPMGenerator.cpp:132-181``); a dense
   ``(N, N+1)`` differentiation matrix turns the defect evaluation into a
@@ -38,7 +39,6 @@ import numpy as np
 
 _NATIVE_LOCK = threading.Lock()
 _NATIVE_LIB = None
-_NATIVE_TRIED = False
 
 
 def _native_dir() -> str:
@@ -50,103 +50,40 @@ def _build_dir() -> str:
 
 
 def _load_native():
-    """Build (once) and load the long-double LGR backend; None on failure."""
-    global _NATIVE_LIB, _NATIVE_TRIED
+    """Build (once) and load the long-double LGR backend. Raises when
+    ``g++`` fails."""
+    global _NATIVE_LIB
     with _NATIVE_LOCK:
-        if _NATIVE_TRIED:
+        if _NATIVE_LIB is not None:
             return _NATIVE_LIB
-        _NATIVE_TRIED = True
         src = os.path.join(_native_dir(), "lgr_native.cpp")
         so = os.path.join(_build_dir(), "liblgr_native.so")
-        try:
-            os.makedirs(_build_dir(), exist_ok=True)
-            if (not os.path.exists(so)) or os.path.getmtime(so) < os.path.getmtime(src):
-                # build under a private name, then rename: concurrent
-                # processes never load a half-written library
-                tmp = f"{so}.{os.getpid()}.tmp"
-                subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-                os.replace(tmp, so)
-            lib = ctypes.CDLL(so)
-            lib.lgr_nodes_weights.restype = ctypes.c_int
-            lib.lgr_nodes_weights.argtypes = [
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.POINTER(ctypes.c_double),
-            ]
-            lib.diff_matrix.restype = ctypes.c_int
-            lib.diff_matrix.argtypes = [
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.POINTER(ctypes.c_double),
-            ]
-            _NATIVE_LIB = lib
-        except Exception:  # pragma: no cover - fallback path
-            _NATIVE_LIB = None
-        return _NATIVE_LIB
+        os.makedirs(_build_dir(), exist_ok=True)
+        if (not os.path.exists(so)) or os.path.getmtime(so) < os.path.getmtime(src):
+            # build under a private name, then rename: concurrent
+            # processes never load a half-written library
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=120,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed ({proc.returncode}) building {so}:\n{proc.stdout}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        dbl_p = ctypes.POINTER(ctypes.c_double)
+        for fn in (lib.lgr_nodes_weights, lib.diff_matrix):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, dbl_p, dbl_p]
+        _NATIVE_LIB = lib
+        return lib
 
 
-def _legendre_pair(n: int, x):
-    """Return (P_{n-1}(x), P_n(x)) by the three-term recurrence."""
-    p0 = np.ones_like(x)
-    p1 = np.asarray(x).copy()
-    if n == 0:
-        return np.zeros_like(x), p0
-    if n == 1:
-        return p0, p1
-    for k in range(2, n + 1):
-        p0, p1 = p1, ((2 * k - 1) * x * p1 - (k - 1) * p0) / k
-    return p0, p1
-
-
-def _lgr_numpy(n: int):
-    """LGR nodes/weights in numpy.longdouble (fallback when g++ unavailable).
-
-    Nodes: -1 plus the roots of P_{n-1} + P_n. Initial guesses come from the
-    Gauss–Radau-modified Jacobi matrix (Golub–Welsch), polished by Newton in
-    extended precision.
-    """
-    if n == 1:
-        return np.array([-1.0]), np.array([2.0])
-    k = np.arange(1, n, dtype=np.float64)
-    beta = k**2 / (4 * k**2 - 1)
-    # Golub's Gauss–Radau modification of the last diagonal entry for a = -1.
-    a = np.longdouble(-1.0)
-    q0, qm1 = np.longdouble(1.0), np.longdouble(0.0)
-    pn2 = pn1 = np.longdouble(0.0)
-    for j in range(n):
-        if j == n - 2:
-            pn2 = q0
-        if j == n - 1:
-            pn1 = q0
-        bj = np.longdouble(0.0) if j == 0 else np.longdouble(j * j) / (4 * j * j - 1)
-        q0, qm1 = a * q0 - bj * qm1, q0
-    alpha = np.zeros(n)
-    alpha[-1] = float(a - np.longdouble(beta[-1]) * pn2 / pn1)
-    J = np.diag(alpha) + np.diag(np.sqrt(beta), 1) + np.diag(np.sqrt(beta), -1)
-    x = np.sort(np.linalg.eigvalsh(J)).astype(np.longdouble)
-    x[0] = np.longdouble(-1.0)
-    # Newton polish of interior nodes on q(x) = P_{n-1}(x) + P_n(x).
-    xi = x[1:]
-    for _ in range(8):
-        pnm1, pn = _legendre_pair(n, xi)
-        pnm2, pnm1b = _legendre_pair(n - 1, xi)
-        denom = xi * xi - 1.0
-        dq = n * (xi * pn - pnm1) / denom + (n - 1) * (xi * pnm1b - pnm2) / denom
-        step = (pnm1 + pn) / dq
-        xi = xi - step
-        if np.max(np.abs(step)) < np.longdouble(1e-19):
-            break
-    x[1:] = xi
-    w = np.empty(n, dtype=np.longdouble)
-    w[0] = np.longdouble(2.0) / (n * n)
-    pnm1, _ = _legendre_pair(n, x[1:])
-    w[1:] = (1.0 - x[1:]) / (n * n * pnm1 * pnm1)
-    return x.astype(np.float64), w.astype(np.float64)
+def _call_native(name: str, n: int, a: np.ndarray, b: np.ndarray):
+    dbl_p = ctypes.POINTER(ctypes.c_double)
+    rc = getattr(_load_native(), name)(n, a.ctypes.data_as(dbl_p), b.ctypes.data_as(dbl_p))
+    if rc != 0:
+        raise RuntimeError(f"lgr_native.{name}({n}) failed with code {rc}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,20 +95,9 @@ def lgr_nodes_weights(n: int) -> tuple[np.ndarray, np.ndarray]:
     """
     if n < 1:
         raise ValueError(f"LGR degree must be >= 1, got {n}")
-    lib = _load_native()
-    if lib is not None:
-        nodes = np.empty(n, dtype=np.float64)
-        weights = np.empty(n, dtype=np.float64)
-        rc = lib.lgr_nodes_weights(
-            n,
-            nodes.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            weights.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        )
-        if rc == 0:
-            nodes.setflags(write=False)
-            weights.setflags(write=False)
-            return nodes, weights
-    nodes, weights = _lgr_numpy(n)
+    nodes = np.empty(n, dtype=np.float64)
+    weights = np.empty(n, dtype=np.float64)
+    _call_native("lgr_nodes_weights", n, nodes, weights)
     nodes.setflags(write=False)
     weights.setflags(write=False)
     return nodes, weights
@@ -192,26 +118,11 @@ def differentiation_matrix_full(pts: np.ndarray) -> np.ndarray:
     from the negative-sum trick (cf. the reference's ``CollocD``,
     ``RPMGenerator.cpp:107-130``, re-derived here).
     """
-    pts = np.asarray(pts, dtype=np.float64)
+    pts = np.ascontiguousarray(pts, dtype=np.float64)
     m = pts.shape[0]
-    lib = _load_native()
-    if lib is not None:
-        D = np.empty((m, m), dtype=np.float64)
-        rc = lib.diff_matrix(
-            m,
-            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            D.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        )
-        if rc == 0:
-            return D
-    ptsl = pts.astype(np.longdouble)
-    bw = barycentric_weights(pts).astype(np.longdouble)
-    diff = ptsl[:, None] - ptsl[None, :]
-    np.fill_diagonal(diff, np.inf)
-    D = (bw[None, :] / bw[:, None]) / diff
-    np.fill_diagonal(D, 0.0)
-    np.fill_diagonal(D, -np.sum(D, axis=1))
-    return D.astype(np.float64)
+    D = np.empty((m, m), dtype=np.float64)
+    _call_native("diff_matrix", m, pts, D)
+    return D
 
 
 @functools.lru_cache(maxsize=None)

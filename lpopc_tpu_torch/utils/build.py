@@ -32,23 +32,15 @@ def build_dir() -> str:
 
 
 def find_nvcc() -> str:
-    """Path of ``nvcc``: ``$CUDA_HOME/bin``, the ``PATH``, then the
-    toolkit's usual place. Raises when there is none."""
-    candidates = []
-    for var in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(var):
-            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(on_path)
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (looked at $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
-        "the CUDA kernels of lpopc_tpu_torch cannot be built"
-    )
+    """Path of ``nvcc``: on the ``PATH``, else the toolkit's usual place.
+    Raises when there is none."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(nvcc, os.X_OK):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and at /usr/local/cuda/bin); "
+            "the CUDA kernels of lpopc_tpu_torch cannot be built"
+        )
+    return nvcc
 
 
 def library_path(name: str) -> str:
@@ -59,10 +51,9 @@ def source_path(name: str) -> str:
     return os.path.join(package_dir(), "csrc", f"{name}.cu")
 
 
-def start_build(name: str, extra_flags=()) -> tuple:
-    """Start ``nvcc`` for ``csrc/<name>.cu`` without waiting: returns
-    ``(process, tmp_path, final_path)`` for :func:`finish_build`. Several
-    sources build in parallel by starting all, then finishing all."""
+def build(name: str, extra_flags=(), timeout: float = 600.0) -> str:
+    """Compile ``csrc/<name>.cu`` into :func:`library_path` and return the
+    compiler's output. Raises when ``nvcc`` fails or runs past ``timeout`` seconds."""
     src = source_path(name)
     if not os.path.isfile(src):
         raise FileNotFoundError(src)
@@ -70,22 +61,12 @@ def start_build(name: str, extra_flags=()) -> tuple:
     final = library_path(name)
     tmp = f"{final}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, final
-
-
-def finish_build(handle, timeout: float = 600.0) -> str:
-    proc, tmp, final = handle
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise RuntimeError(f"nvcc timed out after {timeout} s building {final}")
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=timeout)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {final}:\n{out}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {final}:\n{proc.stdout}")
     os.replace(tmp, final)   # atomic: no process loads a half-written file
-    return out
+    return proc.stdout
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -96,7 +77,7 @@ def load_library(name: str) -> ctypes.CDLL:
             return _LIBS[name]
         so, src = library_path(name), source_path(name)
         if (not os.path.exists(so)) or os.path.getmtime(so) < os.path.getmtime(src):
-            finish_build(start_build(name))
+            build(name)
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
         return lib
