@@ -1,8 +1,10 @@
 """Batched small-matrix Cholesky and Cholesky-solve (hand-written CUDA kernels).
 
-The IPM's per-instance condensed KKT matrices are small (n ~ 30-200); a sweep
-factors hundreds of them per regularization round and solves against each
-factor about five times. Two kernels carry that:
+The IPM's per-instance condensed KKT matrices are small to medium (n from a
+few dozen up to the 699 of the dense path's block-KKT threshold, and any n
+with ``block_kkt="off"``); a sweep factors hundreds of them per
+regularization round and solves against each factor about five times. Two
+kernels carry that:
 
 * :func:`lane_cholesky`  — K1, ``(B, n, n) -> (B, n, n)`` lower factors;
 * :func:`lane_cho_solve` — K2, ``(B, n, n), (B, n) -> (B, n)`` solutions of
@@ -11,10 +13,14 @@ factor about five times. Two kernels carry that:
 They keep the names of the JAX package's ``ops/batched_linalg.py``, whose
 Pallas kernels ``_chol_kernel`` and ``_solve_kernel`` they replace. The TPU
 kernels put the batch on the 128-wide lane axis of ``(n, n, B)`` arrays; the
-CUDA kernels (``csrc/batched_linalg.cu``) instead give each matrix a thread
-block and hold it in shared memory, in PyTorch's native ``(B, n, n)`` layout
-with no padding — see the note at the top of the ``.cu`` file for the design
-and its bound.
+CUDA kernels (``csrc/batched_linalg.cu``) work in PyTorch's native
+``(B, n, n)`` layout with no padding: K1 gives each matrix a thread block,
+K2 gives each system one warp. Each has a shared-memory variant, for the
+matrices that fit one block's shared memory, and a global-memory variant
+with no size limit; :func:`variant` chooses from n and the element size,
+by the rule of ``csrc/batched_linalg_layout.h`` that the launchers use
+(built for the host with g++, so it needs no GPU). See the note at the top
+of the ``.cu`` file for the designs and their bounds.
 
 **Device rule.** For a CUDA tensor a wrapper launches its kernel or raises.
 Only a tensor that lies on the CPU takes the plain PyTorch version
@@ -23,8 +29,9 @@ same column recurrence in tensor ops and is what the CPU tests and the
 on-card comparison use. ``torch.linalg.cholesky`` / ``torch.cholesky_solve``
 are not used here.
 
-Each wrapper counts its kernel launches in a plain integer attribute
-(``lane_cholesky.launches``, ``lane_cho_solve.launches``).
+Each wrapper counts its kernel launches in plain integer attributes:
+``launches`` (all), ``launches_shared`` and ``launches_global`` (each
+variant), e.g. ``lane_cho_solve.launches_global``.
 """
 
 from __future__ import annotations
@@ -35,11 +42,10 @@ import torch
 
 from ..utils.build import load_library
 
-# shared memory one thread block may use on Hopper (227 KB)
-MAX_BLOCK_SMEM = 232448
-
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_VARIANTS = ("shared", "global")
 _lib = None
+_layout = None
 
 
 def _library():
@@ -52,15 +58,53 @@ def _library():
             f = getattr(lib, f"lpopc_lane_cholesky_{sfx}")
             f.argtypes = [vp, vp, i32, i32, i64, vp]
             f.restype = i32
+            f = getattr(lib, f"lpopc_lane_cholesky_global_{sfx}")
+            f.argtypes = [vp, vp, vp, i32, i32, i64, vp]
+            f.restype = i32
             g = getattr(lib, f"lpopc_lane_cho_solve_{sfx}")
             g.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp]
             g.restype = i32
-        for name in ("lpopc_lane_cholesky_smem_bytes", "lpopc_lane_cho_solve_smem_bytes"):
-            h = getattr(lib, name)
-            h.argtypes = [i32, i32]
-            h.restype = i64
+            g = getattr(lib, f"lpopc_lane_cho_solve_global_{sfx}")
+            g.argtypes = [vp, vp, vp, vp, i32, i32, i64, i64, vp]
+            g.restype = i32
         _lib = lib
     return _lib
+
+
+def _layout_library():
+    """The host library of ``csrc/batched_linalg_layout.cpp`` (g++, first use)."""
+    global _layout
+    if _layout is None:
+        lib = load_library("batched_linalg_layout")
+        for kernel in ("lane_cholesky", "lane_cho_solve"):
+            f = getattr(lib, f"lpopc_{kernel}_variant")
+            f.argtypes = [ctypes.c_int, ctypes.c_int]
+            f.restype = ctypes.c_int
+        _layout = lib
+    return _layout
+
+
+def variant(kernel: str, n: int, elem_size: int) -> str:
+    """Which variant of ``kernel`` ("lane_cholesky" or "lane_cho_solve")
+    runs an n x n system of ``elem_size``-byte elements: "shared" when it
+    fits one block's shared memory, else "global" (no size limit). The rule
+    is ``csrc/batched_linalg_layout.h``'s: K1 shared holds n * (n | 1) + n
+    elements (n <= 169 in f64, 240 in f32), K2 shared the packed triangle
+    and ceil(n/32) <= 8 rows per lane (n <= 240 in f64, 256 in f32)."""
+    if kernel not in ("lane_cholesky", "lane_cho_solve"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    return _VARIANTS[getattr(_layout_library(), f"lpopc_{kernel}_variant")(n, elem_size)]
+
+
+def _count(wrapper, which: str):
+    wrapper.launches += 1
+    setattr(wrapper, f"launches_{which}", getattr(wrapper, f"launches_{which}") + 1)
+
+
+def reset_launches():
+    """Set every launch count of both wrappers to 0."""
+    for w in (lane_cholesky, lane_cho_solve):
+        w.launches = w.launches_shared = w.launches_global = 0
 
 
 def _check_launch(code: int, what: str):
@@ -109,25 +153,26 @@ def lane_cholesky(K: torch.Tensor) -> torch.Tensor:
     if K.device.type != "cuda":
         raise RuntimeError(f"lane_cholesky: unsupported device {K.device}")
     B, n, _ = K.shape
+    which = variant("lane_cholesky", n, K.element_size())
     lib = _library()
-    need = lib.lpopc_lane_cholesky_smem_bytes(n, K.element_size())
-    if need > MAX_BLOCK_SMEM:
-        raise ValueError(
-            f"lane_cholesky: n={n} needs {need} bytes of shared memory per block, "
-            f"more than the {MAX_BLOCK_SMEM} a block may use"
-        )
     K = _row_major(K)
     L = torch.empty((B, n, n), dtype=K.dtype, device=K.device)
+    sfx = _SUFFIX[K.dtype]
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(lib, f"lpopc_lane_cholesky_{_SUFFIX[K.dtype]}")
-        code = fn(K.data_ptr(), L.data_ptr(), B, n, K.stride(0), stream)
-    _check_launch(code, "lane_cholesky")
-    lane_cholesky.launches += 1
+        if which == "shared":
+            code = getattr(lib, f"lpopc_lane_cholesky_{sfx}")(
+                K.data_ptr(), L.data_ptr(), B, n, K.stride(0), stream)
+        else:
+            col = torch.empty((B, n), dtype=K.dtype, device=K.device)   # scratch
+            code = getattr(lib, f"lpopc_lane_cholesky_global_{sfx}")(
+                K.data_ptr(), L.data_ptr(), col.data_ptr(), B, n, K.stride(0), stream)
+    _check_launch(code, f"lane_cholesky ({which})")
+    _count(lane_cholesky, which)
     return L
 
 
-lane_cholesky.launches = 0
+lane_cholesky.launches = lane_cholesky.launches_shared = lane_cholesky.launches_global = 0
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -181,25 +226,26 @@ def lane_cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"lane_cho_solve: unsupported device {L.device}")
     L, b = _broadcast_pair(L, b)
     B, n, _ = L.shape
+    which = variant("lane_cho_solve", n, L.element_size())
     lib = _library()
-    need = lib.lpopc_lane_cho_solve_smem_bytes(n, L.element_size())
-    if need > MAX_BLOCK_SMEM:
-        raise ValueError(
-            f"lane_cho_solve: n={n} needs {need} bytes of shared memory per block, "
-            f"more than the {MAX_BLOCK_SMEM} a block may use"
-        )
     L = _row_major(L)
     if b.stride(1) != 1:
         b = b.contiguous()
     x = torch.empty((B, n), dtype=b.dtype, device=b.device)
+    sfx = _SUFFIX[L.dtype]
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(lib, f"lpopc_lane_cho_solve_{_SUFFIX[L.dtype]}")
-        code = fn(L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n,
-                  L.stride(0), b.stride(0), stream)
-    _check_launch(code, "lane_cho_solve")
-    lane_cho_solve.launches += 1
+        if which == "shared":
+            code = getattr(lib, f"lpopc_lane_cho_solve_{sfx}")(
+                L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, L.stride(0), b.stride(0), stream)
+        else:
+            rinv = torch.empty((B, n), dtype=b.dtype, device=b.device)   # scratch
+            code = getattr(lib, f"lpopc_lane_cho_solve_global_{sfx}")(
+                L.data_ptr(), b.data_ptr(), x.data_ptr(), rinv.data_ptr(), B, n,
+                L.stride(0), b.stride(0), stream)
+    _check_launch(code, f"lane_cho_solve ({which})")
+    _count(lane_cho_solve, which)
     return x
 
 
-lane_cho_solve.launches = 0
+lane_cho_solve.launches = lane_cho_solve.launches_shared = lane_cho_solve.launches_global = 0

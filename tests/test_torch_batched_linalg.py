@@ -1,5 +1,7 @@
 """Port parity: the plain versions of the batched Cholesky / Cholesky-solve
-kernels against the JAX package's Pallas kernels run in interpret mode.
+kernels against the JAX package's Pallas kernels run in interpret mode, and
+at a size past the kernels' shared-memory variants against the unbatched
+rule of the JAX package's ``smart_cholesky_and_solve``.
 
 On the CPU the port's wrappers take the plain PyTorch versions (the CUDA
 kernels are held against the same plain versions on the card by
@@ -52,6 +54,57 @@ def test_lane_cho_solve_matches_interpret_kernel(reference, B, n, dt):
     np.testing.assert_allclose(x.numpy(), x_ref, rtol=0, atol=TOL[dt] * np.abs(x_ref).max())
 
 
+def test_large_n_matches_unbatched_reference():
+    """n = 197 (brachistochrone degrees (24, 24)): past K1's shared-memory
+    variant in f64. The reference is smart_cholesky_and_solve's unbatched
+    rule (jnp.linalg.cholesky, jax.scipy.linalg.cho_solve), one system at a
+    time; interpret mode would cost seconds at this size."""
+    B, n = 2, 197
+    K, b = _spd(B, n, np.float64, seed=3)
+    chol, solve = ref.smart_cholesky_and_solve()
+    L_ref = np.stack([np.asarray(chol(jnp.asarray(K[i]))) for i in range(B)])
+    x_ref = np.stack([np.asarray(solve(jnp.asarray(L_ref[i]), jnp.asarray(b[i])))
+                      for i in range(B)])
+    # The plain recurrence is n small tensor ops; on a loaded CPU the
+    # intra-op thread pool's wake-ups cost 100x the arithmetic.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        L = port.lane_cholesky(torch.as_tensor(K))
+        x = port.lane_cho_solve(torch.as_tensor(L_ref), torch.as_tensor(b))
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_allclose(L.numpy(), L_ref, rtol=0, atol=1e-9 * np.abs(L_ref).max())
+    np.testing.assert_allclose(x.numpy(), x_ref, rtol=0, atol=1e-9 * np.abs(x_ref).max())
+
+
+# (n, dtype) -> (K1 variant, K2 variant), by the byte counts: K1's shared
+# variant holds n * (n | 1) + n elements, K2's the packed triangle
+# n(n+1)/2 per system with ceil(n/32) <= 8 right-hand-side rows per lane,
+# and a block may use 232448 bytes. So K1 is shared up to n = 169 (f64) and
+# 240 (f32), K2 up to 240 (f64) and 256 (f32); each split is pinned on both
+# sides.
+VARIANTS = {
+    (53, np.float64): ("shared", "shared"), (53, np.float32): ("shared", "shared"),
+    (169, np.float64): ("shared", "shared"), (169, np.float32): ("shared", "shared"),
+    (170, np.float64): ("global", "shared"), (170, np.float32): ("shared", "shared"),
+    (197, np.float64): ("global", "shared"), (197, np.float32): ("shared", "shared"),
+    (240, np.float64): ("global", "shared"), (240, np.float32): ("shared", "shared"),
+    (241, np.float64): ("global", "global"), (241, np.float32): ("global", "shared"),
+    (256, np.float32): ("global", "shared"), (257, np.float32): ("global", "global"),
+    (700, np.float64): ("global", "global"), (700, np.float32): ("global", "global"),
+}
+
+
+@pytest.mark.parametrize("n,dt", list(VARIANTS))
+def test_variant_split_follows_the_byte_count(n, dt):
+    esz = np.dtype(dt).itemsize
+    k1, k2 = port.variant("lane_cholesky", n, esz), port.variant("lane_cho_solve", n, esz)
+    assert (k1, k2) == VARIANTS[(n, dt)]
+    with pytest.raises(ValueError):
+        port.variant("lane_lu", n, esz)
+
+
 def test_non_pd_gives_nan_diagonal_without_raising():
     K, _ = _spd(4, 8, np.float64)
     K[2] = -K[2]
@@ -89,7 +142,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_cpu_tensors_count_no_kernel_launch():
-    before = (port.lane_cholesky.launches, port.lane_cho_solve.launches)
+    def counts():
+        return [getattr(w, a) for w in (port.lane_cholesky, port.lane_cho_solve)
+                for a in ("launches", "launches_shared", "launches_global")]
+
+    before = counts()
     K, b = _spd(2, 4, np.float64)
     port.lane_cho_solve(port.lane_cholesky(torch.as_tensor(K)), torch.as_tensor(b))
-    assert (port.lane_cholesky.launches, port.lane_cho_solve.launches) == before
+    assert counts() == before
+    port.reset_launches()
+    assert counts() == [0] * 6
