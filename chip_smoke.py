@@ -22,7 +22,7 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 5. ``sweep_apply``  the same sweep on the library-matmul route
                     (``lane_kkt=False``), for comparison;
 6. ``sweep_lane_large`` a 64-instance sweep at degrees (24, 24) (n = 197),
-                    through K1's global variant and K2's shared one;
+                    through both kernels' shared variants;
 
 and prints one JSON line per phase, then a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -33,6 +33,7 @@ printed. Without a CUDA device it exits at once with an error.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,14 +74,22 @@ BATCH_LARGE = 64
 REFERENCE_OBJECTIVES_LARGE = (
     0.8199081764044944, 0.7775134388029132, 0.8438688680217514, 0.8279257292302437,
 )
+# What the counted run of each lane sweep takes (the JAX package's iteration
+# counts; one K1 launch per regularization round, five K2 launches per
+# iteration; one host sync per loop condition).
+EXPECT_LANE = {"iters_p50": 13, "first_iterations": [13] * 8,
+               "launches": {"lane_cholesky": 13, "lane_cho_solve": 65}, "host_syncs": 40}
+EXPECT_LANE_LARGE = {"iters_p50": 13, "first_iterations": [15, 15, 13, 13],
+                     "launches": {"lane_cholesky": 48, "lane_cho_solve": 240}}
 OBJECTIVE_TOL = 1e-7
 ANALYTIC_TOL = 1e-7     # unperturbed target against the cycloid's final time
 
-# Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; outside the
-# tensor cores, where both kernels run, 67 TFLOP/s in float32 and half of
-# that in float64 (the sheet rounds it to 34).
+# Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s in
+# float64 on the tensor cores (K1's trailing update runs there; outside them
+# float64 has half that) and 67 TFLOP/s in float32 outside them (TF32 is
+# not float32).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 
 # event_ms: cycles per ms of a GPU sleep (at least the H100's boost clock,
 # so a sleep lasts at least as long as asked), and the longest sleep
@@ -88,14 +97,31 @@ SLEEP_CYCLES_PER_MS = 2.0e6
 MAX_SLEEP_MS = 50.0
 
 F64, F32 = torch.float64, torch.float32
-# (B, n, dtype) -> the variants of (K1, K2) that must run there
+# (B, n, dtype) -> the variants of (K1, K2) that must run there. K1 is
+# shared up to n = 239 (f64) / 339 (f32), K2 up to 240 / 256; K1 works in
+# panels of 32 columns, so the small-batch shapes put a panel edge at each
+# side of n = 1, 32, 64 and of each split.
 KERNEL_SHAPES = {
     (512, 53, F64): ("shared", "shared"),
     (130, 16, F64): ("shared", "shared"),
     (64, 24, F32): ("shared", "shared"),
-    (64, 197, F64): ("global", "shared"),
+    (64, 197, F64): ("shared", "shared"),
     (64, 197, F32): ("shared", "shared"),
     (8, 700, F64): ("global", "global"),
+    (16, 360, F32): ("global", "global"),
+    (512, 300, F64): ("global", "global"),    # K1's panel-step grid spans several waves
+    (3, 1, F64): ("shared", "shared"),
+    (3, 31, F64): ("shared", "shared"),
+    (3, 32, F64): ("shared", "shared"),
+    (3, 33, F64): ("shared", "shared"),
+    (3, 64, F64): ("shared", "shared"),
+    (3, 65, F64): ("shared", "shared"),
+    (3, 239, F64): ("shared", "shared"),
+    (3, 240, F64): ("global", "shared"),
+    (3, 241, F64): ("global", "global"),
+    (3, 256, F64): ("global", "global"),
+    (3, 339, F32): ("shared", "global"),
+    (3, 340, F32): ("global", "global"),
 }
 MAIN_SHAPE = (512, 53, F64)                   # the sweep's
 TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64))
@@ -112,6 +138,24 @@ def nvidia_smi_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def ptxas_summary(log: str):
+    """One line per kernel of ``nvcc -Xptxas -v``'s output: its short name
+    and template arguments, registers, shared memory and spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d((?:lane|cholesky)_\w+?)I([df])(?:Li(\d+)E)?", m.group(1))
+            name = (f"{k.group(1)}<{'f64' if k.group(2) == 'd' else 'f32'}"
+                    f"{',' + k.group(3) if k.group(3) else ''}>") if k else m.group(1)
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def event_ms(fn, warmup: int = 5, reps: int = 30, batches: int = 3) -> float:
@@ -210,7 +254,7 @@ def check_nan_contracts():
     no exception, in both variants. K2: a zero diagonal in one system gives
     a non-finite x there, in both variants. The other systems of the batch
     stay finite."""
-    for n in (53, 197):                  # K1 shared, K1 global
+    for n in (53, 300):                  # K1 shared, K1 global
         K, _ = spd_batch(8, n, F64, seed=7)
         K[3] = -K[3]
         L = bl.lane_cholesky(K)
@@ -324,9 +368,11 @@ def reset_counters(bs):
 
 
 def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
-                reference=REFERENCE_OBJECTIVES, variants=("shared", "shared")):
-    """One sweep, its counted run and its checks; ``variants`` are those of
-    (K1, K2) that must run on the lane route."""
+                reference=REFERENCE_OBJECTIVES, expect=None):
+    """One sweep, its counted run and its checks: on the lane route both
+    kernels must run their shared variants only, and ``expect`` maps fields
+    of the phase's line (iters_p50, first_iterations, launches, host_syncs)
+    to the values they must take."""
     problem = brachistochrone.make_problem(degrees=degrees)
     options = SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=lane_kkt))
     bs = make_batch_solver(problem, options)          # device=None: the GPU
@@ -366,10 +412,10 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
         raise AssertionError(
             f"{name}: first {nref} objectives differ from the reference by {obj_err}")
     if lane_kkt:
-        for k, v in zip(("lane_cholesky", "lane_cho_solve"), variants):
-            if not (by_variant[k][v] > 0 and by_variant[k][v] == launches[k]):
+        for k in ("lane_cholesky", "lane_cho_solve"):
+            if not (by_variant[k]["shared"] > 0 and by_variant[k]["shared"] == launches[k]):
                 raise AssertionError(
-                    f"{name}: {k} did not run (only) its {v} variant: {by_variant[k]}")
+                    f"{name}: {k} did not run (only) its shared variant: {by_variant[k]}")
     if not lane_kkt and (launches["lane_cholesky"] or launches["lane_cho_solve"]):
         raise AssertionError(f"{name}: the library-matmul route launched a kernel: {launches}")
 
@@ -382,6 +428,13 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
         raise AssertionError(
             f"{name}: nominal solve status {int(res1.status[0])}, tf {tf}, "
             f"differs from the analytic optimum by {tf_err}")
+
+    got = {"iters_p50": int(np.median(iterations)),
+           "first_iterations": iterations[:nref].tolist(), "launches": launches,
+           "host_syncs": host_syncs}
+    for key, want in (expect or {}).items():
+        if got[key] != want:
+            raise AssertionError(f"{name}: {key} is {got[key]}, expected {want}")
 
     wall = statistics.median(walls)
     emit(name, lane_kkt=lane_kkt, batch=batch, n=bs.n, m=bs.m,
@@ -407,14 +460,14 @@ def main():
     log = build.build("batched_linalg", extra_flags=("-Xptxas", "-v"))
     bl._library()                                      # load and bind
     emit("build", seconds=time.perf_counter() - t0, library=build.library_path("batched_linalg"),
-         ptxas=[ln for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16])
+         ptxas=ptxas_summary(log))
 
     timed, launch_floor = phase_kernels()
-    launches, by_variant = phase_sweep("sweep_lane", lane_kkt=True)
+    launches, by_variant = phase_sweep("sweep_lane", lane_kkt=True, expect=EXPECT_LANE)
     phase_sweep("sweep_apply", lane_kkt=False)
     _, by_variant_large = phase_sweep(
         "sweep_lane_large", lane_kkt=True, degrees=DEGREES_LARGE, batch=BATCH_LARGE,
-        reference=REFERENCE_OBJECTIVES_LARGE, variants=("global", "shared"))
+        reference=REFERENCE_OBJECTIVES_LARGE, expect=EXPECT_LANE_LARGE)
 
     source = "lpopc_tpu_torch/csrc/batched_linalg.cu"
     replaces = {"lane_cholesky": "lpopc_tpu/ops/batched_linalg.py:128",

@@ -10,12 +10,6 @@
 
 #include <stddef.h>
 
-#ifdef __CUDACC__
-#define LPOPC_HOST_DEVICE __host__ __device__
-#else
-#define LPOPC_HOST_DEVICE
-#endif
-
 namespace lpopc_layout {
 
 // shared memory one block may use on Hopper (227 KB)
@@ -28,13 +22,17 @@ constexpr int kSolveMaxWarps = 4;
 
 enum Variant { kShared = 0, kGlobal = 1 };
 
-// Odd leading dimension: a column walk (stride ld) then touches distinct
-// shared-memory banks for 4- and 8-byte elements alike.
-LPOPC_HOST_DEVICE inline int lead_dim(int n) { return n | 1; }
+// K1 shared: warps per block. The panel step gives a warp each 32 rows below
+// the first panel, and one warp more copies K in and L out meanwhile.
+inline int cholesky_warps(int n) {
+    const int row_warps = n > 32 ? (n - 32 + 31) / 32 : 1;
+    return row_warps + 1;
+}
 
-// K1 shared: the matrix (n x lead_dim(n)) and one column.
+// K1 shared: a 32-entry column buffer per warp and the packed lower
+// triangle (row i at offset i(i+1)/2): n <= 239 in f64, n <= 339 in f32.
 inline size_t cholesky_smem_bytes(int n, int elem_size) {
-    return ((size_t)n * lead_dim(n) + n) * elem_size;
+    return ((size_t)32 * cholesky_warps(n) + (size_t)n * (n + 1) / 2) * elem_size;
 }
 
 // K2 shared: per system, the packed lower triangle (row i at offset i(i+1)/2).

@@ -14,13 +14,15 @@ They keep the names of the JAX package's ``ops/batched_linalg.py``, whose
 Pallas kernels ``_chol_kernel`` and ``_solve_kernel`` they replace. The TPU
 kernels put the batch on the 128-wide lane axis of ``(n, n, B)`` arrays; the
 CUDA kernels (``csrc/batched_linalg.cu``) work in PyTorch's native
-``(B, n, n)`` layout with no padding: K1 gives each matrix a thread block,
-K2 gives each system one warp. Each has a shared-memory variant, for the
-matrices that fit one block's shared memory, and a global-memory variant
-with no size limit; :func:`variant` chooses from n and the element size,
-by the rule of ``csrc/batched_linalg_layout.h`` that the launchers use
-(built for the host with g++, so it needs no GPU). See the note at the top
-of the ``.cu`` file for the designs and their bounds.
+``(B, n, n)`` layout with no padding: K1 factors in panels of 32 columns
+(one thread block per matrix, or, past shared memory, a few launches per
+panel over many blocks per matrix), K2 gives each system one warp. Each has
+a shared-memory variant, for the matrices that fit one block's shared
+memory, and a global-memory variant with no size limit; :func:`variant`
+chooses from n and the element size, by the rule of
+``csrc/batched_linalg_layout.h`` that the launchers use (built for the host
+with g++, so it needs no GPU). See the note at the top of the ``.cu`` file
+for the designs and their bounds.
 
 **Device rule.** For a CUDA tensor a wrapper launches its kernel or raises.
 Only a tensor that lies on the CPU takes the plain PyTorch version
@@ -55,12 +57,10 @@ def _library():
         lib = load_library("batched_linalg")
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for sfx in _SUFFIX.values():
-            f = getattr(lib, f"lpopc_lane_cholesky_{sfx}")
-            f.argtypes = [vp, vp, i32, i32, i64, vp]
-            f.restype = i32
-            f = getattr(lib, f"lpopc_lane_cholesky_global_{sfx}")
-            f.argtypes = [vp, vp, vp, i32, i32, i64, vp]
-            f.restype = i32
+            for name in (f"lpopc_lane_cholesky_{sfx}", f"lpopc_lane_cholesky_global_{sfx}"):
+                f = getattr(lib, name)
+                f.argtypes = [vp, vp, i32, i32, i64, vp]
+                f.restype = i32
             g = getattr(lib, f"lpopc_lane_cho_solve_{sfx}")
             g.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp]
             g.restype = i32
@@ -88,8 +88,9 @@ def variant(kernel: str, n: int, elem_size: int) -> str:
     """Which variant of ``kernel`` ("lane_cholesky" or "lane_cho_solve")
     runs an n x n system of ``elem_size``-byte elements: "shared" when it
     fits one block's shared memory, else "global" (no size limit). The rule
-    is ``csrc/batched_linalg_layout.h``'s: K1 shared holds n * (n | 1) + n
-    elements (n <= 169 in f64, 240 in f32), K2 shared the packed triangle
+    is ``csrc/batched_linalg_layout.h``'s: K1 shared holds the packed lower
+    triangle, n(n+1)/2 elements, and a 32-entry column buffer per warp
+    (n <= 239 in f64, 339 in f32), K2 shared the same triangle per system
     and ceil(n/32) <= 8 rows per lane (n <= 240 in f64, 256 in f32)."""
     if kernel not in ("lane_cholesky", "lane_cho_solve"):
         raise ValueError(f"unknown kernel {kernel!r}")
@@ -158,15 +159,10 @@ def lane_cholesky(K: torch.Tensor) -> torch.Tensor:
     K = _row_major(K)
     L = torch.empty((B, n, n), dtype=K.dtype, device=K.device)
     sfx = _SUFFIX[K.dtype]
+    entry = "lpopc_lane_cholesky_" + ("global_" if which == "global" else "") + sfx
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if which == "shared":
-            code = getattr(lib, f"lpopc_lane_cholesky_{sfx}")(
-                K.data_ptr(), L.data_ptr(), B, n, K.stride(0), stream)
-        else:
-            col = torch.empty((B, n), dtype=K.dtype, device=K.device)   # scratch
-            code = getattr(lib, f"lpopc_lane_cholesky_global_{sfx}")(
-                K.data_ptr(), L.data_ptr(), col.data_ptr(), B, n, K.stride(0), stream)
+        code = getattr(lib, entry)(K.data_ptr(), L.data_ptr(), B, n, K.stride(0), stream)
     _check_launch(code, f"lane_cholesky ({which})")
     _count(lane_cholesky, which)
     return L

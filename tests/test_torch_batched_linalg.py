@@ -17,7 +17,8 @@ from lpopc_tpu_torch.ops import batched_linalg as port
 
 # f64: same recurrence, other summation order. f32: as tests/test_batched_linalg.py
 TOL = {np.float64: 1e-9, np.float32: 5e-3}
-SHAPES = [(4, 8, np.float64), (130, 16, np.float64), (64, 24, np.float32)]
+# (4, 33): a ragged second panel of K1's 32-column panels
+SHAPES = [(4, 8, np.float64), (130, 16, np.float64), (64, 24, np.float32), (4, 33, np.float64)]
 
 
 def _spd(B, n, dtype, seed=0):
@@ -55,8 +56,8 @@ def test_lane_cho_solve_matches_interpret_kernel(reference, B, n, dt):
 
 
 def test_large_n_matches_unbatched_reference():
-    """n = 197 (brachistochrone degrees (24, 24)): past K1's shared-memory
-    variant in f64. The reference is smart_cholesky_and_solve's unbatched
+    """n = 197 (brachistochrone degrees (24, 24)): seven of K1's 32-column
+    panels, the last one ragged. The reference is smart_cholesky_and_solve's unbatched
     rule (jnp.linalg.cholesky, jax.scipy.linalg.cho_solve), one system at a
     time; interpret mode would cost seconds at this size."""
     B, n = 2, 197
@@ -79,19 +80,22 @@ def test_large_n_matches_unbatched_reference():
 
 
 # (n, dtype) -> (K1 variant, K2 variant), by the byte counts: K1's shared
-# variant holds n * (n | 1) + n elements, K2's the packed triangle
-# n(n+1)/2 per system with ceil(n/32) <= 8 right-hand-side rows per lane,
-# and a block may use 232448 bytes. So K1 is shared up to n = 169 (f64) and
-# 240 (f32), K2 up to 240 (f64) and 256 (f32); each split is pinned on both
-# sides.
+# variant holds the packed lower triangle n(n+1)/2 and a 32-entry column
+# buffer for each of its ceil((n-32)/32) + 1 warps, K2's the packed triangle
+# per system with ceil(n/32) <= 8 right-hand-side rows per lane, and a block
+# may use 232448 bytes. So K1 is shared up to n = 239 (f64) and 339 (f32),
+# K2 up to 240 (f64) and 256 (f32); each split is pinned on both sides.
+# (169/170 were K1's f64 split while it held the full n x (n|1) square.)
 VARIANTS = {
     (53, np.float64): ("shared", "shared"), (53, np.float32): ("shared", "shared"),
     (169, np.float64): ("shared", "shared"), (169, np.float32): ("shared", "shared"),
-    (170, np.float64): ("global", "shared"), (170, np.float32): ("shared", "shared"),
-    (197, np.float64): ("global", "shared"), (197, np.float32): ("shared", "shared"),
+    (170, np.float64): ("shared", "shared"), (170, np.float32): ("shared", "shared"),
+    (197, np.float64): ("shared", "shared"), (197, np.float32): ("shared", "shared"),
+    (239, np.float64): ("shared", "shared"),
     (240, np.float64): ("global", "shared"), (240, np.float32): ("shared", "shared"),
-    (241, np.float64): ("global", "global"), (241, np.float32): ("global", "shared"),
-    (256, np.float32): ("global", "shared"), (257, np.float32): ("global", "global"),
+    (241, np.float64): ("global", "global"), (241, np.float32): ("shared", "shared"),
+    (256, np.float32): ("shared", "shared"), (257, np.float32): ("shared", "global"),
+    (339, np.float32): ("shared", "global"), (340, np.float32): ("global", "global"),
     (700, np.float64): ("global", "global"), (700, np.float32): ("global", "global"),
 }
 
