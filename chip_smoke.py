@@ -23,6 +23,14 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
                     (``lane_kkt=False``), for comparison;
 6. ``sweep_lane_large`` a 64-instance sweep at degrees (24, 24) (n = 197),
                     through both kernels' shared variants;
+7. ``hp_solve``     the single-problem hp-adaptive solve of the hypersensitive
+                    problem at tf = 5000 (the reference's own executable
+                    configuration), once with ph and once with hp-Liu
+                    refinement, every grid through both kernels
+                    (``lane_kkt=True``, ``block_kkt="off"``); the grids grow
+                    to n = 4099, so both kernels' global variants run. It
+                    checks the grid count, the mesh history, the objective
+                    and the mesh error against the JAX package's run;
 
 and prints one JSON line per phase, then a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -45,9 +53,10 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device available (torch.cuda.is_available() is False)")
 
+from lpopc_tpu_torch.core import solve as solve_mod
 from lpopc_tpu_torch.core.ipm import SOLVED, IPMOptions
 from lpopc_tpu_torch.core.solve import SolveOptions
-from lpopc_tpu_torch.models import brachistochrone
+from lpopc_tpu_torch.models import brachistochrone, hypersensitive
 from lpopc_tpu_torch.ops import batched_linalg as bl
 from lpopc_tpu_torch.parallel.batch import make_batch_solver
 from lpopc_tpu_torch.utils import build
@@ -83,6 +92,169 @@ EXPECT_LANE_LARGE = {"iters_p50": 13, "first_iterations": [15, 15, 13, 13],
                      "launches": {"lane_cholesky": 48, "lane_cho_solve": 240}}
 OBJECTIVE_TOL = 1e-7
 ANALYTIC_TOL = 1e-7     # unperturbed target against the cycloid's final time
+
+# hp_solve: hypersensitive.make_problem(tf=5000.0) under these options, with
+# mesh_method "ph" and "hp-liu". The reference numbers come from the JAX
+# package (lpopc_tpu, CPU, x64) under the same options with lane_kkt=False:
+# grid count, objective, final mesh error, per-grid n, m and IPM iterations,
+# and every grid's mesh as (degree, segments, fractions) — after the first
+# mesh every degree is the bucket degree.
+HP_OPTIONS = dict(tol=1e-8, max_grid_num=20, desired_relative_error=1e-6, n_max=16,
+                  block_kkt="off")
+HP_GOLDEN_J = 1.33080711      # Rao 2000, the reference's published optimum
+HP_GOLDEN_RTOL = 2e-6
+HP_OBJECTIVE_RTOL = 1e-8      # against the JAX package's objective
+HP_FRACTION_TOL = 1e-12
+HP_REFERENCE = {
+    "ph": {
+        "grids": 6, "objective": 1.3308069003439473,
+        "max_relative_error": 2.715304718403644e-07,
+        "n": [43, 67, 515, 1027, 2051, 4099],
+        "m": [21, 33, 257, 513, 1025, 2049],
+        "iterations": [8, 2, 8, 5, 3, 3],
+        "mesh_history": [
+            (20, 1, (
+                -1.0, 1.0,)),
+            (4, 8, (
+                -1.0, -0.7142857142857143, -0.4285714285714286, -0.1428571428571429,
+                0.1428571428571428, 0.2857142857142857, 0.4285714285714286, 0.7142857142857142,
+                1.0,)),
+            (16, 16, (
+                -1.0, -0.9428571428571428, -0.8857142857142857, -0.8285714285714285,
+                -0.7714285714285715, -0.7142857142857143, -0.5714285714285714,
+                -0.4285714285714286, -0.28571428571428575, -0.1428571428571429,
+                -5.551115123125783e-17, 0.1428571428571428, 0.2857142857142857,
+                0.4285714285714286, 0.7142857142857142, 0.8571428571428571, 1.0,)),
+            (16, 32, (
+                -1.0, -0.9904761904761905, -0.9809523809523809, -0.9714285714285714,
+                -0.9619047619047619, -0.9523809523809523, -0.9428571428571428,
+                -0.9314285714285714, -0.9199999999999999, -0.9085714285714286,
+                -0.8971428571428571, -0.8857142857142857, -0.8285714285714285,
+                -0.7714285714285715, -0.7142857142857143, -0.6428571428571428,
+                -0.5714285714285714, -0.4285714285714286, -0.28571428571428575,
+                -0.1428571428571429, -5.551115123125783e-17, 0.1428571428571428,
+                0.21428571428571425, 0.2857142857142857, 0.4285714285714286,
+                0.5714285714285714, 0.7142857142857142, 0.8571428571428571, 0.8857142857142857,
+                0.9142857142857143, 0.9428571428571428, 0.9714285714285714, 1.0,)),
+            (16, 64, (
+                -1.0, -0.9980952380952381, -0.9961904761904762, -0.9942857142857143,
+                -0.9923809523809524, -0.9904761904761905, -0.9809523809523809,
+                -0.9714285714285714, -0.9619047619047619, -0.9523809523809523,
+                -0.9428571428571428, -0.9314285714285714, -0.9199999999999999,
+                -0.9085714285714286, -0.8971428571428571, -0.8857142857142857,
+                -0.8285714285714285, -0.7714285714285715, -0.7142857142857143,
+                -0.6785714285714286, -0.6428571428571428, -0.6071428571428571,
+                -0.5714285714285714, -0.5357142857142857, -0.5, -0.4285714285714286,
+                -0.3571428571428572, -0.3214285714285715, -0.28571428571428575,
+                -0.25000000000000006, -0.21428571428571433, -0.1785714285714286,
+                -0.1428571428571429, -0.10714285714285719, -0.07142857142857148,
+                -0.03571428571428577, -5.551115123125783e-17, 0.03571428571428566,
+                0.07142857142857137, 0.10714285714285708, 0.1428571428571428,
+                0.17857142857142852, 0.21428571428571425, 0.24999999999999997,
+                0.2857142857142857, 0.3214285714285714, 0.35714285714285715,
+                0.3928571428571429, 0.4285714285714286, 0.5, 0.5714285714285714,
+                0.6428571428571428, 0.7142857142857142, 0.7857142857142856, 0.8214285714285714,
+                0.8571428571428571, 0.8857142857142857, 0.9142857142857143, 0.9428571428571428,
+                0.9714285714285714, 0.9771428571428571, 0.9828571428571429, 0.9885714285714285,
+                0.9942857142857143, 1.0,)),
+            (16, 128, (
+                -1.0, -0.9996190476190476, -0.9992380952380953, -0.9988571428571429,
+                -0.9984761904761905, -0.9980952380952381, -0.9961904761904762,
+                -0.9942857142857143, -0.9923809523809524, -0.9904761904761905,
+                -0.9809523809523809, -0.9714285714285714, -0.9619047619047619,
+                -0.9523809523809523, -0.9428571428571428, -0.9314285714285714,
+                -0.9199999999999999, -0.9085714285714286, -0.8971428571428571,
+                -0.8857142857142857, -0.8714285714285714, -0.8571428571428571,
+                -0.8428571428571427, -0.8285714285714285, -0.8, -0.7714285714285715,
+                -0.7428571428571429, -0.7142857142857143, -0.6964285714285714,
+                -0.6785714285714286, -0.6607142857142857, -0.6428571428571428, -0.625,
+                -0.6071428571428571, -0.5892857142857142, -0.5714285714285714,
+                -0.5535714285714286, -0.5357142857142857, -0.5178571428571428, -0.5,
+                -0.48214285714285715, -0.4642857142857143, -0.44642857142857145,
+                -0.4285714285714286, -0.41071428571428575, -0.3928571428571429,
+                -0.37500000000000006, -0.3571428571428572, -0.33928571428571436,
+                -0.3214285714285715, -0.3035714285714286, -0.28571428571428575,
+                -0.2678571428571429, -0.25000000000000006, -0.2321428571428572,
+                -0.21428571428571433, -0.19642857142857145, -0.1785714285714286,
+                -0.16071428571428575, -0.1428571428571429, -0.12500000000000006,
+                -0.10714285714285719, -0.08928571428571433, -0.07142857142857148,
+                -0.053571428571428624, -0.03571428571428577, -0.01785714285714291,
+                -5.551115123125783e-17, 0.0178571428571428, 0.03571428571428566,
+                0.05357142857142851, 0.07142857142857137, 0.08928571428571422,
+                0.10714285714285708, 0.12499999999999994, 0.1428571428571428,
+                0.16071428571428564, 0.17857142857142852, 0.1964285714285714,
+                0.21428571428571425, 0.2321428571428571, 0.24999999999999997,
+                0.26785714285714285, 0.2857142857142857, 0.30357142857142855,
+                0.3214285714285714, 0.3392857142857143, 0.35714285714285715, 0.375,
+                0.3928571428571429, 0.41071428571428575, 0.4285714285714286,
+                0.44642857142857145, 0.4642857142857143, 0.48214285714285715, 0.5,
+                0.5178571428571428, 0.5357142857142857, 0.5535714285714286, 0.5714285714285714,
+                0.5892857142857142, 0.6071428571428571, 0.625, 0.6428571428571428,
+                0.6607142857142856, 0.6785714285714285, 0.6964285714285714, 0.7142857142857142,
+                0.732142857142857, 0.7499999999999999, 0.7678571428571428, 0.7857142857142856,
+                0.8035714285714285, 0.8214285714285714, 0.8392857142857142, 0.8571428571428571,
+                0.8857142857142857, 0.9142857142857143, 0.9428571428571428, 0.9714285714285714,
+                0.9771428571428571, 0.9828571428571429, 0.9885714285714285, 0.9942857142857143,
+                0.9954285714285714, 0.9965714285714286, 0.9977142857142858, 0.9988571428571429,
+                1.0,)),
+        ],
+    },
+    "hp-liu": {
+        "grids": 9, "objective": 1.330806904843104,
+        "max_relative_error": 3.4850518177975686e-07,
+        "n": [43, 131, 515, 515, 515, 515, 515, 515, 515],
+        "m": [21, 65, 257, 257, 257, 257, 257, 257, 257],
+        "iterations": [8, 5, 8, 7, 4, 4, 3, 2, 2],
+        "mesh_history": [
+            (20, 1, (
+                -1.0, 1.0,)),
+            (16, 4, (
+                -1.0, -0.33333333333333337, 0.33333333333333326, 0.6666666666666666, 1.0,)),
+            (16, 16, (
+                -1.0, -0.8888888888888888, -0.7777777777777778, -0.6666666666666667,
+                -0.5555555555555556, -0.44444444444444453, -0.33333333333333337,
+                -0.1666666666666667, -5.551115123125783e-17, 0.1666666666666666,
+                0.33333333333333326, 0.41666666666666663, 0.49999999999999994,
+                0.6666666666666666, 0.8333333333333333, 0.9166666666666666, 1.0,)),
+            (16, 16, (
+                -1.0, -0.9629629629629629, -0.9259259259259259, -0.8888888888888888,
+                -0.8333333333333333, -0.7777777777777778, -0.5555555555555556,
+                -0.33333333333333337, -0.1666666666666667, -5.551115123125783e-17,
+                0.33333333333333326, 0.49999999999999994, 0.8333333333333333,
+                0.9166666666666666, 0.9444444444444444, 0.9722222222222222, 1.0,)),
+            (16, 16, (
+                -1.0, -0.9876543209876543, -0.9753086419753086, -0.9629629629629629,
+                -0.9259259259259259, -0.8333333333333333, -0.5555555555555556,
+                -0.36111111111111116, -0.1666666666666667, 0.08333333333333327,
+                0.33333333333333326, 0.5833333333333333, 0.8333333333333333,
+                0.9444444444444444, 0.9722222222222222, 0.9861111111111112, 1.0,)),
+            (16, 16, (
+                -1.0, -0.9958847736625515, -0.9917695473251028, -0.9876543209876543,
+                -0.9753086419753086, -0.9259259259259259, -0.5555555555555556,
+                -0.36111111111111116, -0.1666666666666667, 0.08333333333333327,
+                0.33333333333333326, 0.5833333333333333, 0.8333333333333333,
+                0.9722222222222222, 0.9861111111111112, 0.9930555555555556, 1.0,)),
+            (16, 16, (
+                -1.0, -0.9979423868312758, -0.9958847736625515, -0.9917695473251028,
+                -0.9876543209876543, -0.9259259259259259, -0.6435185185185186,
+                -0.36111111111111116, -0.13888888888888895, 0.08333333333333327,
+                0.33333333333333326, 0.5833333333333333, 0.9722222222222222,
+                0.9861111111111112, 0.9930555555555556, 0.9965277777777778, 1.0,)),
+            (16, 16, (
+                -1.0, -0.9989711934156379, -0.9979423868312758, -0.9958847736625515,
+                -0.9917695473251028, -0.9259259259259259, -0.6435185185185186,
+                -0.36111111111111116, -0.13888888888888895, 0.08333333333333327,
+                0.33333333333333326, 0.5833333333333333, 0.9861111111111112,
+                0.9930555555555556, 0.9965277777777778, 0.9982638888888888, 1.0,)),
+            (16, 16, (
+                -1.0, -0.9994855967078189, -0.9989711934156379, -0.9979423868312758,
+                -0.9958847736625515, -0.9259259259259259, -0.6435185185185186,
+                -0.36111111111111116, -0.13888888888888895, 0.08333333333333327,
+                0.33333333333333326, 0.5833333333333333, 0.9930555555555556,
+                0.9965277777777778, 0.9982638888888888, 0.9991319444444444, 1.0,)),
+        ],
+    },
+}
 
 # Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s in
 # float64 on the tensor cores (K1's trailing update runs there; outside them
@@ -122,9 +294,16 @@ KERNEL_SHAPES = {
     (3, 256, F64): ("global", "global"),
     (3, 339, F32): ("shared", "global"),
     (3, 340, F32): ("global", "global"),
+    (1, 241, F64): ("global", "global"),      # one system: panel edges past the split
+    (1, 300, F64): ("global", "global"),
+    (1, 513, F64): ("global", "global"),
 }
+# every (1, n) the hp solve launches, with the variant its n selects
+HP_N = sorted(set(HP_REFERENCE["ph"]["n"]) | set(HP_REFERENCE["hp-liu"]["n"]))
+KERNEL_SHAPES.update({(1, n, F64): (bl.variant("lane_cholesky", n, 8),
+                                    bl.variant("lane_cho_solve", n, 8)) for n in HP_N})
 MAIN_SHAPE = (512, 53, F64)                   # the sweep's
-TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64))
+TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64), (1, 4099, F64))
 REL_TOL = {F64: 1e-10, F32: 5e-3}
 
 
@@ -220,8 +399,9 @@ def kernel_times(K, b, L_plain, x, x_plain, L):
     """Kernel, plain and library times and the bound of K1 and K2 at one shape."""
     B, n, _ = K.shape
     dtype, esz = K.dtype, K.element_size()
-    big = n > 100                        # the plain versions take n launches per column
-    plain_reps = dict(warmup=1, reps=5) if big else dict(warmup=2, reps=20)
+    # the plain versions take n steps of several launches each
+    plain_reps = (dict(warmup=0, reps=1, batches=1) if n > 1000
+                  else dict(warmup=1, reps=5) if n > 100 else dict(warmup=2, reps=20))
     # Bytes each function must move: K is symmetric and L lower triangular,
     # so B*n*(n+1)/2 entries of either are read; K1 writes the full (B, n, n)
     # factor (zeros above the diagonal), K2 reads b and writes x.
@@ -450,6 +630,95 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
     return launches, by_variant
 
 
+WRAPPERS = {"lane_cholesky": bl.lane_cholesky, "lane_cho_solve": bl.lane_cho_solve}
+
+
+def hp_solve(method: str):
+    """One hp-adaptive solve of the reference configuration through the
+    kernels, with its counted launches per grid, checked against the JAX
+    package's run."""
+    ref = HP_REFERENCE[method]
+    per_grid = []
+    real = solve_mod.solve_on_mesh
+
+    def counted(*args, **kw):
+        # launches of this grid's solve: the counts before and after it
+        before = {k: (w.launches_shared, w.launches_global) for k, w in WRAPPERS.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = real(*args, **kw)
+        torch.cuda.synchronize()
+        per_grid.append({
+            "wall_s": time.perf_counter() - t0,
+            "launches": {k: {"shared": w.launches_shared - before[k][0],
+                             "global": w.launches_global - before[k][1]}
+                         for k, w in WRAPPERS.items()}})
+        return sol
+
+    options = SolveOptions(mesh_method=method, ipm=IPMOptions(tol=1e-8, max_iter=300,
+                                                              lane_kkt=True), **HP_OPTIONS)
+    problem = hypersensitive.make_problem(tf=5000.0)
+    solve_mod.solve_on_mesh = counted
+    try:
+        bl.reset_launches()                          # the counted run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve_mod.solve(problem, options)       # device=None: the GPU
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        solve_mod.solve_on_mesh = real
+    launches = {k: {"shared": w.launches_shared, "global": w.launches_global}
+                for k, w in WRAPPERS.items()}
+
+    name = f"hp_solve[{method}]"
+    if sol.status != 1:
+        raise AssertionError(f"{name}: status {sol.status}, expected 1 (solved)")
+    if sol.grids != ref["grids"] or len(sol.grid_stats) != ref["grids"]:
+        raise AssertionError(f"{name}: {sol.grids} grids and {len(sol.grid_stats)} NLP "
+                             f"solves, the JAX package took {ref['grids']}")
+    for g, (((deg, fr),), (rdeg, rcount, rfr)) in enumerate(
+            zip(sol.mesh_history, ref["mesh_history"]), start=1):
+        if tuple(deg) != (rdeg,) * rcount or len(fr) != len(rfr):
+            raise AssertionError(f"{name}: grid {g} mesh degrees {deg} differ from the "
+                                 f"JAX package's ({rdeg},) * {rcount}")
+        ferr = max(abs(a - b) for a, b in zip(fr, rfr))
+        if not ferr <= HP_FRACTION_TOL:
+            raise AssertionError(f"{name}: grid {g} mesh fractions differ by {ferr}")
+    obj_rel = abs(sol.objective - ref["objective"]) / abs(ref["objective"])
+    golden_rel = abs(sol.objective - HP_GOLDEN_J) / HP_GOLDEN_J
+    if not (obj_rel <= HP_OBJECTIVE_RTOL and golden_rel <= HP_GOLDEN_RTOL):
+        raise AssertionError(f"{name}: objective {sol.objective!r}: {obj_rel} relative to "
+                             f"the JAX package's, {golden_rel} to the golden {HP_GOLDEN_J}")
+    if not sol.max_relative_error <= HP_OPTIONS["desired_relative_error"]:
+        raise AssertionError(f"{name}: max relative error {sol.max_relative_error}")
+    grids = []
+    for g, (st, pg) in enumerate(zip(sol.grid_stats, per_grid)):
+        if (st["n"], st["m"]) != (ref["n"][g], ref["m"][g]):
+            raise AssertionError(f"{name}: grid {g + 1} (n, m) = {(st['n'], st['m'])}, "
+                                 f"the JAX package's ({ref['n'][g]}, {ref['m'][g]})")
+        for k, by in pg["launches"].items():
+            want = bl.variant(k, st["n"], 8)
+            if by[want] == 0 or sum(by.values()) != by[want]:
+                raise AssertionError(f"{name}: grid {g + 1} (n = {st['n']}) launched {k} "
+                                     f"{by}, expected only its {want} variant")
+        grids.append({"grid": g + 1, "n": st["n"], "m": st["m"],
+                      "iterations": st["iterations"], "jax_iterations": ref["iterations"][g],
+                      "launches": pg["launches"], "host_syncs": st["host_syncs"],
+                      "ipm_wall_s": st["wall_s"], "wall_s": pg["wall_s"]})
+    for k, by in launches.items():
+        need = ("shared", "global") if any(n >= 241 for n in ref["n"]) else ("shared",)
+        if any(by[v] == 0 for v in need):
+            raise AssertionError(f"{name}: {k} launches {by}, every variant of {need} must run")
+    emit("hp_solve", method=method, status=sol.status, grids=sol.grids,
+         objective=sol.objective, objective_rel_err_vs_jax=obj_rel,
+         objective_rel_err_vs_golden=golden_rel, max_relative_error=sol.max_relative_error,
+         jax_max_relative_error=ref["max_relative_error"], mesh_history_matches=True,
+         iterations_match=[g["iterations"] for g in grids] == ref["iterations"],
+         wall_s=wall, launches=launches, per_grid=grids)
+    return launches
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -468,15 +737,18 @@ def main():
     _, by_variant_large = phase_sweep(
         "sweep_lane_large", lane_kkt=True, degrees=DEGREES_LARGE, batch=BATCH_LARGE,
         reference=REFERENCE_OBJECTIVES_LARGE, expect=EXPECT_LANE_LARGE)
+    hp = {method: hp_solve(method) for method in ("ph", "hp-liu")}
 
     source = "lpopc_tpu_torch/csrc/batched_linalg.cu"
     replaces = {"lane_cholesky": "lpopc_tpu/ops/batched_linalg.py:128",
                 "lane_cho_solve": "lpopc_tpu/ops/batched_linalg.py:193"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source, "replaces": replaces[k],
-         "launches": launches[k], **timed[MAIN_SHAPE][k],
+         # this slice's path: the hp solve, ph and hp-Liu runs together
+         "launches": sum(sum(hp[m][k].values()) for m in hp), **timed[MAIN_SHAPE][k],
          "launches_by_variant": {"sweep_lane": by_variant[k],
-                                 "sweep_lane_large": by_variant_large[k]},
+                                 "sweep_lane_large": by_variant_large[k],
+                                 **{f"hp_solve_{m}": hp[m][k] for m in hp}},
          "launch_floor_ms": launch_floor,
          "at_shapes": [{"B": B, "n": n, "dtype": str(dt).replace("torch.", ""), **timed[
              (B, n, dt)][k]} for (B, n, dt) in TIMED_SHAPES if (B, n, dt) != MAIN_SHAPE]}

@@ -16,7 +16,9 @@ Conventions:
 * This package imports ``torch``, numpy and the standard library only.
 """
 
+from .core.postprocess import Solution  # noqa: F401
 from .core.problem import INF, Linkage, Phase, Problem  # noqa: F401
+from .core.solve import SolveOptions, solve  # noqa: F401
 from .core.transcribe import NLP, transcribe  # noqa: F401
 
 __version__ = "0.1.0"

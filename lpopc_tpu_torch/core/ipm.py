@@ -250,19 +250,22 @@ def build_solver(
     solve goes through the hand-written kernels of
     :mod:`..ops.batched_linalg` (also at B = 1).
 
-    ``kkt_factorizer``, ``structured_kkt`` (the block-KKT factorization for
-    large n) and ``takes_aux`` (runtime-mesh solves for hp refinement) are
-    not ported yet and raise ``NotImplementedError``.
+    With ``takes_aux=True`` the problem callables take a trailing argument —
+    ``objective(z, aux)``, ``constraints(z, aux)``, ``jac_fn(z, aux)``,
+    ``hess_fn(z, lam, aux)`` — and ``solve`` takes ``aux``: one dict per call
+    (the runtime-mesh hp solve passes the mesh fractions and scale vectors,
+    ``core/solve.py``), shared by the whole batch and passed to the lifted
+    functions un-batched. So one solver serves every mesh with the same
+    degree signature.
+
+    ``kkt_factorizer`` and ``structured_kkt`` (the block-KKT factorization
+    for large n) are not ported yet and raise ``NotImplementedError``.
     """
     opt = options
     if kkt_factorizer is not None or structured_kkt is not None:
         raise NotImplementedError(
             "kkt_factorizer / structured_kkt (the segment-block KKT "
             "factorization) belong to the large-n KKT slice of the port")
-    if takes_aux:
-        raise NotImplementedError(
-            "takes_aux (runtime-mesh solves) belongs to the hp-refinement "
-            "slice of the port")
     if opt.ls_mode == "parallel" and (opt.soc is True or opt.watchdog):
         # both mechanisms live in the sequential search; failing loudly
         # beats a silently inert flag (soc=None resolving to on is fine to
@@ -343,15 +346,20 @@ def build_solver(
     def _eq_ok(Fe):
         return _factor_ok(Fe[0])
 
-    grad_f = vmap(grad(objective))
-    obj_b = vmap(objective)
-    con_b = vmap(constraints)
+    def lift(objective, constraints, jac_fn, hess_fn):
+        """The single-instance problem functions lifted over the batch axis:
+        (grad, objective, constraints, Lagrangian Hessian, Jacobian)."""
+        def lagrangian(z, lam):
+            return objective(z) + torch.dot(lam, constraints(z))
 
-    def lagrangian(z, lam):
-        return objective(z) + torch.dot(lam, constraints(z))
+        return (
+            vmap(grad(objective)), vmap(objective), vmap(constraints),
+            vmap(hess_fn if hess_fn is not None else hessian(lagrangian, argnums=0)),
+            vmap(jac_fn if jac_fn is not None else jacfwd(constraints)),
+        )
 
-    hess_l = vmap(hess_fn if hess_fn is not None else hessian(lagrangian, argnums=0))
-    jac_c = vmap(jac_fn if jac_fn is not None else jacfwd(constraints))
+    if not takes_aux:
+        lifted = lift(objective, constraints, jac_fn, hess_fn)
 
     def _any(t) -> bool:
         """``t.any()`` read on the host: one synchronization, counted."""
@@ -363,8 +371,14 @@ def build_solver(
         # `tol` (optional, a float or a per-instance (B,) tensor) overrides
         # opt.tol for the CONVERGENCE TEST only — everything else keyed off
         # opt.tol (mu floor, theta_min) stays fixed.
-        if aux is not None:
-            raise NotImplementedError("aux belongs to the hp-refinement slice")
+        if takes_aux:
+            grad_f, obj_b, con_b, hess_l, jac_c = lift(
+                lambda z: objective(z, aux), lambda z: constraints(z, aux),
+                None if jac_fn is None else (lambda z: jac_fn(z, aux)),
+                None if hess_fn is None else (lambda z, lam: hess_fn(z, lam, aux)),
+            )
+        else:
+            grad_f, obj_b, con_b, hess_l, jac_c = lifted
         dtype, dev = z0.dtype, z0.device
         B = z0.shape[0]
         sc = lambda v: torch.full((B,), float(v), dtype=dtype, device=dev)

@@ -22,10 +22,12 @@ out-of-place, vmap-friendly ops.
 **Assembly is a gather, not a scatter-add.** Several blocks land on the same
 dense entry (every node touches the ``t0``/``tf``/``q`` columns). The block →
 dense index map is static, so :class:`_GatherAssembly` precomputes, for every
-dense entry, the list of block entries that sum into it (padded to the
-largest multiplicity) and evaluates ``dense = blocks[table].sum(-1)``. The
-summation order is fixed by the table, so the result is bitwise reproducible
-run to run — which ``index_put_(accumulate=True)`` on CUDA (atomics) is not.
+dense entry that receives blocks, the list of block entries that sum into it
+(padded per group of entries with similar counts) and evaluates
+``sums = blocks[table].sum(-1)``, then places the sums with one more gather.
+The summation order is fixed by the tables, so the result is bitwise
+reproducible run to run — which ``index_put_(accumulate=True)`` on CUDA
+(atomics) is not.
 
 This mirrors what the reference hand-codes over ~5 kLoC
 (``LpNLPWrapper::GetPhaseJacbi``, ``LpHessian::CalculatePhaseHessian`` —
@@ -100,34 +102,52 @@ class _GatherAssembly:
     """Deterministic ``dense.flat[dest[i]] += src[i]`` for a static ``dest``.
 
     ``dest`` (numpy, duplicates allowed) maps every entry of the flattened
-    source vector to an entry of a dense vector of length ``size``. The
-    table ``(size, maxdup)`` lists, per dense entry, the source positions that
-    sum into it, padded with the index of an appended zero.
+    source vector to an entry of a dense vector of length ``size``. Dense
+    entries that receive sources are grouped by their source count rounded
+    up to a power of two; each group's table ``(entries, width)`` lists the
+    source positions that sum into each entry, in source order, padded with
+    the index of an appended zero. A last gather places the sums (and zero
+    elsewhere). Memory stays within twice the source count plus ``size``
+    however unevenly the sources fall: the ``t0``/``tf`` entries of a phase
+    receive one source per node, most others one or two.
     """
 
     def __init__(self, dest: np.ndarray, size: int):
         dest = np.asarray(dest, dtype=np.int64).reshape(-1)
         nsrc = dest.shape[0]
-        counts = np.bincount(dest, minlength=size) if nsrc else np.zeros(size, np.int64)
-        maxdup = max(1, int(counts.max()) if nsrc else 1)
-        table = np.full((size, maxdup), nsrc, dtype=np.int64)
         order = np.argsort(dest, kind="stable")
-        sorted_dest = dest[order]
-        group_start = np.cumsum(counts) - counts
-        rank = np.arange(nsrc) - group_start[sorted_dest]
-        table[sorted_dest, rank] = order
-        self._table_np = table
+        uniq, start, counts = np.unique(dest[order], return_index=True, return_counts=True)
+        width = 1 << np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64)
+        self._tables_np = []
+        pos = np.full(size, uniq.shape[0], dtype=np.int64)   # the zero slot
+        off = 0
+        for w in np.unique(width):
+            sel = np.nonzero(width == w)[0]
+            ranks = np.arange(w)[None, :]
+            valid = ranks < counts[sel][:, None]
+            table = np.full((sel.shape[0], int(w)), nsrc, dtype=np.int64)
+            table[valid] = order[(start[sel][:, None] + ranks)[valid]]
+            self._tables_np.append(table)
+            pos[uniq[sel]] = off + np.arange(sel.shape[0])
+            off += sel.shape[0]
+        self._pos_np = pos
         self._tables = {}
 
-    def table(self, device) -> torch.Tensor:
+    def tables(self, device):
         key = str(device)
         if key not in self._tables:
-            self._tables[key] = torch.as_tensor(self._table_np, device=device)
+            self._tables[key] = (
+                [torch.as_tensor(t, device=device) for t in self._tables_np],
+                torch.as_tensor(self._pos_np, device=device),
+            )
         return self._tables[key]
 
     def __call__(self, src_flat: torch.Tensor) -> torch.Tensor:
-        ext = torch.cat([src_flat, src_flat.new_zeros(1)])
-        return ext[self.table(src_flat.device)].sum(-1)
+        zero = src_flat.new_zeros(1)
+        ext = torch.cat([src_flat, zero])
+        tables, pos = self.tables(src_flat.device)
+        sums = torch.cat([ext[t].sum(-1) for t in tables] + [zero])
+        return sums[pos]
 
 
 def _phase_node_inputs(pl, X, U, t0, tf, q):

@@ -4,9 +4,6 @@ States (x, y, v) with y measured downward, control θ (wire angle from the
 vertical): ẋ = v sinθ, ẏ = v cosθ, v̇ = g cosθ; start at rest at the origin,
 reach (xf, yf) in minimum time. The analytic optimum is a cycloid, which makes
 this the framework's primary golden test.
-
-The single-problem hp-adaptive ``solve()`` of the JAX package is not part of
-the port yet; the model is driven through ``parallel.batch.make_batch_solver``.
 """
 
 from __future__ import annotations
@@ -15,6 +12,7 @@ import numpy as np
 import torch
 
 from ..core.problem import Phase, Problem
+from ..core.solve import SolveOptions, solve as _solve
 from ..ops.lgr import uniform_fractions
 
 G = 10.0
@@ -61,3 +59,7 @@ def analytic_tf(xf: float = 2.0, yf: float = 2.0) -> float:
         phi -= f / df
     a = yf / (1 - np.cos(phi))
     return phi * np.sqrt(a / G)
+
+
+def solve(options: SolveOptions = None, *, device=None, dtype=torch.float64, **kw):
+    return _solve(make_problem(**kw), options or SolveOptions(), device=device, dtype=dtype)

@@ -21,8 +21,10 @@ Design notes
   ``(N, N+1)`` differentiation matrix turns the defect evaluation into a
   single matmul, which beats any sparse representation for the mesh sizes
   this problem class produces (N ≲ a few thousand).
-* Operators driven by RUNTIME mesh fractions (the hp-refinement path) are not
-  part of this module yet.
+* Operators driven by RUNTIME mesh fractions (the hp-refinement path) are
+  materialized from per-degree patterns (:func:`runtime_mesh_patterns`,
+  :func:`materialize_phase_ops`) with the same identities
+  ``make_segment_ops`` bakes into constants.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
+import torch
 
 _NATIVE_LOCK = threading.Lock()
 _NATIVE_LIB = None
@@ -231,6 +234,57 @@ def make_segment_ops(
         D=D,
         seg_starts=tuple(seg_starts),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def runtime_mesh_patterns(degrees: tuple[int, ...]):
+    """Static patterns for materializing phase operators from RUNTIME fractions.
+
+    For a fixed per-segment degree tuple, every collocation operator is a
+    simple rescaling of per-segment constants by the segment half-widths:
+    ``tau = a_s + (tau_loc+1)·h_s``, ``w = w_loc·h_s``, ``D = D_loc/h_s``
+    (``make_segment_ops`` above bakes the same identities into constants).
+    Exposing the unscaled patterns lets one solver take the mesh
+    *fractions* as a runtime argument: every mesh with the same degree
+    signature shares it (the shape-bucketed hp loop, ``core/solve.py``).
+
+    Returns ``(tau_pat, w_pat, P, row_seg)``: per-collocation-row patterns
+    ``tau_loc + 1`` and ``w_loc``, the unscaled block-diagonal ``D`` pattern
+    ``P`` (N, N+1), and the row→segment index map.
+    """
+    degrees = tuple(int(d) for d in degrees)
+    N = sum(degrees)
+    P = np.zeros((N, N + 1))
+    tau_pat = np.empty(N)
+    w_pat = np.empty(N)
+    row_seg = np.empty(N, dtype=np.int32)
+    off = 0
+    for k, nk in enumerate(degrees):
+        tau_loc, w_loc, D_loc, _ = segment_matrices(nk)
+        P[off : off + nk, off : off + nk + 1] = D_loc
+        tau_pat[off : off + nk] = tau_loc + 1.0
+        w_pat[off : off + nk] = w_loc
+        row_seg[off : off + nk] = k
+        off += nk
+    for arr in (tau_pat, w_pat, P, row_seg):
+        arr.setflags(write=False)
+    return tau_pat, w_pat, P, row_seg
+
+
+def materialize_phase_ops(degrees: tuple[int, ...], fracs: torch.Tensor):
+    """(tau, tau_state, w, D) as tensors from runtime fractions ``fracs``
+    ((S+1,) tensor spanning [-1, 1]), on ``fracs``' device and dtype."""
+    tau_pat, w_pat, P, row_seg = runtime_mesh_patterns(tuple(degrees))
+    t = lambda a: torch.as_tensor(np.array(a), device=fracs.device, dtype=fracs.dtype)
+    seg = torch.as_tensor(np.array(row_seg, dtype=np.int64), device=fracs.device)
+    half = (fracs[1:] - fracs[:-1]) / 2.0
+    hs = half[seg]
+    a_s = fracs[:-1][seg]
+    tau = a_s + t(tau_pat) * hs
+    w = t(w_pat) * hs
+    D = t(P) / hs[:, None]
+    tau_state = torch.cat([tau, torch.ones((1,), device=fracs.device, dtype=fracs.dtype)])
+    return tau, tau_state, w, D
 
 
 def uniform_fractions(num_segments: int) -> tuple[float, ...]:

@@ -27,7 +27,7 @@ import torch
 from ..core.ipm import IPMOptions, build_solver
 from ..core.problem import Problem
 from ..core.scaling import scale_nlp
-from ..core.solve import SolveOptions, _block_engaged
+from ..core.solve import SolveOptions, _dense_only
 from ..core.transcribe import transcribe
 from ..utils.device import resolve_device
 
@@ -120,11 +120,7 @@ def make_batch_solver(
             "scale-out slice of the port")
     options = validate(options)
     nlp = transcribe(problem, device=device, dtype=dtype)
-    if _block_engaged(nlp, options):
-        raise NotImplementedError(
-            f"the block-KKT factorization would engage here (block_kkt="
-            f"{options.block_kkt!r}, n={nlp.n}); it belongs to the large-n KKT "
-            "slice of the port — pass block_kkt='off' for the dense path")
+    _dense_only(nlp, options)
     jac_raw = hess_raw = None
     if getattr(options, "structured_derivatives", True):
         from ..core.structured import make_structured_hessian, make_structured_jacobian

@@ -2,17 +2,20 @@
 
 The two packages never import each other. What crosses between them — the
 nominal inputs of a batch solver, the scale vectors of a scaled NLP, the
-fields of a solve result — crosses as numpy arrays through these two
-functions, so that tests feed both solvers the same inputs and warm-start
-one from the other's result.
+fields of a solve result, an hp solve's :class:`Solution` — crosses as numpy
+arrays through these functions, so that tests feed both sides the same
+inputs and warm-start one from the other's result.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..core.ipm import IPMResult
+from ..core.postprocess import PhaseSolution, Solution
 from .device import resolve_device
 
 _INT_FIELDS = ("status", "iterations")
@@ -55,3 +58,28 @@ def result_to_numpy(res: IPMResult) -> dict:
         else {k: v.detach().cpu().numpy() for k, v in res.history.items()}
     )
     return out
+
+
+def solution_from_reference(ref) -> Solution:
+    """The port's :class:`Solution` from a JAX package ``Solution`` (read
+    field by field, so any object with the same fields will do). Every
+    array is copied to numpy; lists of arrays (``error_history``) and the
+    per-grid rows are copied one level deep."""
+    def copy(v):
+        if isinstance(v, np.ndarray):
+            return np.array(v)
+        if isinstance(v, list):
+            return [copy(x) for x in v]
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        return v
+
+    phases = [
+        PhaseSolution(**{f.name: copy(getattr(p, f.name))
+                         for f in dataclasses.fields(PhaseSolution)})
+        for p in ref.phases
+    ]
+    rest = {f.name: copy(getattr(ref, f.name))
+            for f in dataclasses.fields(Solution)
+            if f.name != "phases" and hasattr(ref, f.name)}
+    return Solution(phases=phases, **rest)

@@ -124,10 +124,11 @@ def test_explicit_soc_or_watchdog_with_parallel_line_search_raises():
 def test_unported_hooks_raise():
     obj = lambda z: (z ** 2).sum()
     con = lambda z: z[:1]
-    for kw in (dict(kkt_factorizer=(None, None, None)), dict(structured_kkt=object()),
-               dict(takes_aux=True)):
+    for kw in (dict(kkt_factorizer=(None, None, None)), dict(structured_kkt=object())):
         with pytest.raises(NotImplementedError):
             port_ipm.build_solver(obj, con, 2, 1, **kw)
+    # takes_aux is ported (tests/test_torch_solve.py drives it)
+    assert callable(port_ipm.build_solver(obj, con, 2, 1, takes_aux=True))
 
 
 def test_option_defaults_are_the_reference_defaults():

@@ -1,0 +1,347 @@
+"""Port parity, the slice as a whole: the single-problem hp-adaptive solve
+(transcribe -> scale -> IPM at a batch of one -> error estimate -> ph or
+hp-Liu refinement -> bucketing -> warm start) against the JAX package.
+
+The port runs on the CPU under both factorization routes: ``lane_kkt=False``
+and ``lane_kkt=True`` (the kernels' plain versions here). The JAX package
+runs ``lane_kkt=False``. Grid count, mesh history, status and per-grid IPM
+iterations must be equal; the objective agrees to 1e-9 relative.
+
+The README goldens at full size are long on the CPU and marked ``slow``.
+"""
+
+import importlib
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from lpopc_tpu.core.ipm import IPMOptions as RefIPMOptions
+from lpopc_tpu.core.solve import SolveOptions as RefSolveOptions
+from lpopc_tpu.core.solve import describe_problem as ref_describe
+from lpopc_tpu.core.solve import solve as ref_solve
+from lpopc_tpu_torch.core import solve as port_solve_mod
+from lpopc_tpu_torch.core.ipm import MAX_ITER, SOLVED, IPMOptions, build_solver
+from lpopc_tpu_torch.core.solve import SolveOptions, describe_problem, solve
+from lpopc_tpu_torch.models import hypersensitive
+
+OBJ_RTOL = 1e-9
+# name -> (model, make_problem kwargs, SolveOptions kwargs). The JAX package
+# compiles one solver per mesh signature, 7-20 s each on the CPU and more
+# for larger meshes, so these meshes stay small: ph grows (4, 4) -> (8, 8)
+# -> (16, 16) (n = 19, 35, 67) and converges on grid 3; hp-Liu keeps one
+# signature, (4, 4, 4, 4), on all three grids and converges there.
+CONFIGS = {
+    "hypersensitive_ph": ("hypersensitive", dict(tf=10.0, degrees=(4, 4)),
+                          dict(mesh_method="ph", max_grid_num=3,
+                               desired_relative_error=1e-3)),
+    "moonlander_liu": ("moonlander", dict(degrees=(4, 4, 4)),
+                       dict(mesh_method="hp-liu", max_grid_num=3,
+                            desired_relative_error=1e-4)),
+    "brysondenham_none": ("brysondenham", dict(degrees=(4, 4)), dict(mesh_method="none")),
+}
+# the port-only tests of the hp loop: ph stops at its grid cap (3 grids)
+CAPPED = (dict(tf=40.0, degrees=(6, 6)), dict(mesh_method="ph", max_grid_num=3))
+
+
+def problems(config):
+    model, kw, _ = CONFIGS[config]
+    return (importlib.import_module(f"lpopc_tpu.models.{model}").make_problem(**kw),
+            importlib.import_module(f"lpopc_tpu_torch.models.{model}").make_problem(**kw))
+
+
+def port_options(config, lane_kkt, **extra):
+    return SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=300, lane_kkt=lane_kkt),
+                        **{**CONFIGS[config][2], **extra})
+
+
+def capped(**extra):
+    """The CAPPED problem and its options (lane route)."""
+    return hypersensitive.make_problem(**CAPPED[0]), SolveOptions(
+        ipm=IPMOptions(tol=1e-8, max_iter=300, lane_kkt=True), **{**CAPPED[1], **extra})
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """JAX package solutions, computed once per configuration on first use."""
+    cache = {}
+
+    def get(config):
+        if config not in cache:
+            cache[config] = ref_solve(problems(config)[0], RefSolveOptions(
+                ipm=RefIPMOptions(tol=1e-8, max_iter=300), **CONFIGS[config][2]))
+        return cache[config]
+
+    return get
+
+
+def summary(sol):
+    return (sol.status, sol.grids, sol.mesh_history,
+            [(g["grid"], g["n"], g["m"], g["status"], g["iterations"], g["note"])
+             for g in sol.grid_stats])
+
+
+@pytest.mark.parametrize("lane_kkt", [False, True], ids=["apply", "lane"])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_solve_matches_reference(reference, config, lane_kkt):
+    want = reference(config)
+    got = solve(problems(config)[1], port_options(config, lane_kkt), device="cpu")
+    assert summary(got) == summary(want)
+    assert abs(got.objective - want.objective) <= OBJ_RTOL * abs(want.objective)
+    if CONFIGS[config][2]["mesh_method"] != "none":
+        assert abs(got.max_relative_error - want.max_relative_error) <= (
+            1e-6 * want.max_relative_error)
+    # the trajectories of the last grid, on the same mesh
+    for gp, wp in zip(got.phases, want.phases):
+        np.testing.assert_allclose(gp.x, wp.x, rtol=1e-6, atol=1e-6)
+        assert gp.mesh_fractions == wp.mesh_fractions
+
+
+# larger meshes of the same problems: six JAX signatures, ~3 minutes on the CPU
+LARGER = {
+    "hypersensitive_ph": (dict(tf=40.0, degrees=(6, 6)), dict(mesh_method="ph", max_grid_num=3)),
+    "moonlander_liu": (dict(degrees=(5, 5)), dict(mesh_method="hp-liu", max_grid_num=3)),
+    "brysondenham_none": (dict(), dict(mesh_method="none")),
+}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("config", sorted(LARGER))
+def test_solve_matches_reference_larger(config):
+    model, kw, so = CONFIGS[config][0], *LARGER[config]
+    want = ref_solve(importlib.import_module(f"lpopc_tpu.models.{model}").make_problem(**kw),
+                     RefSolveOptions(ipm=RefIPMOptions(tol=1e-8, max_iter=300), **so))
+    port_problem = importlib.import_module(f"lpopc_tpu_torch.models.{model}").make_problem(**kw)
+    for lane_kkt in (False, True):
+        got = solve(port_problem, SolveOptions(
+            ipm=IPMOptions(tol=1e-8, max_iter=300, lane_kkt=lane_kkt), **so), device="cpu")
+        assert summary(got) == summary(want)
+        assert abs(got.objective - want.objective) <= OBJ_RTOL * abs(want.objective)
+
+
+@pytest.mark.parametrize("config", ["hypersensitive_ph", "moonlander_liu"])
+def test_fixed_mesh_branch_matches_reference(reference, monkeypatch, config):
+    """The hp loop on bucketed meshes with every grid solved by the
+    fixed-mesh branch of solve_on_mesh (no runtime ``aux``) still takes the
+    JAX package's grids and iterations."""
+    real = port_solve_mod.solve_on_mesh
+
+    def fixed(problem, options, prev_sol=None, grid=1, nlp_tol=None, *, device, dtype):
+        return real(problem, replace(options, mesh_bucketing="off"), prev_sol=prev_sol,
+                    grid=grid, nlp_tol=nlp_tol, device=device, dtype=dtype)
+
+    monkeypatch.setattr(port_solve_mod, "_solve_on_mesh_rt", fixed)
+    want = reference(config)
+    got = solve(problems(config)[1], port_options(config, True), device="cpu")
+    assert summary(got) == summary(want)
+    assert abs(got.objective - want.objective) <= OBJ_RTOL * abs(want.objective)
+
+
+def test_describe_problem():
+    ref_problem, port_problem = problems("moonlander_liu")
+    opts = port_options("moonlander_liu", True)
+    ref_opts = RefSolveOptions(**CONFIGS["moonlander_liu"][2])
+    assert describe_problem(port_problem, opts) == ref_describe(ref_problem, ref_opts)
+    assert describe_problem(port_problem) == ref_describe(ref_problem)
+
+
+def test_mesh_bucketing_off_matches_on():
+    """The fixed-mesh branch of solve_on_mesh and the runtime-mesh (aux)
+    branch solve the same NLP in the same iterations."""
+    from lpopc_tpu_torch.models import brysondenham
+
+    port_problem = brysondenham.make_problem()     # four segments: J within 2e-3 of 4
+    on = solve(port_problem, port_options("brysondenham_none", True), device="cpu")
+    off = solve(port_problem, port_options("brysondenham_none", True, mesh_bucketing="off"),
+                device="cpu")
+    assert (on.status, on.iterations) == (off.status, off.iterations) == (SOLVED, 17)
+    assert abs(on.objective - off.objective) <= OBJ_RTOL * abs(on.objective)
+    assert abs(on.objective - 4.0) < 2e-3        # J* = 4/(9l) = 4
+
+
+def test_build_solver_takes_aux():
+    """One aux-taking solver serves two scalings of the same problem; each
+    agrees with a solver built for that scaling alone."""
+    def obj(z, aux):
+        return aux["w"] * ((z[0] - 1.0) ** 2 + (z[1] - 2.0) ** 2)
+
+    def con(z, aux):
+        return torch.stack([z[0] + aux["c"] * z[1]])
+
+    solve_aux = build_solver(obj, con, 2, 1, IPMOptions(tol=1e-10), takes_aux=True)
+    zl, zu = torch.full((1, 2), -10.0, dtype=torch.float64), torch.full((1, 2), 10.0, dtype=torch.float64)
+    cl = cu = torch.ones((1, 1), dtype=torch.float64)
+    z0 = torch.zeros((1, 2), dtype=torch.float64)
+    for w, c in ((1.0, 1.0), (3.0, 0.5)):
+        aux = {"w": torch.tensor(w, dtype=torch.float64), "c": torch.tensor(c, dtype=torch.float64)}
+        got = solve_aux(z0, zl, zu, cl, cu, aux=aux)
+        plain = build_solver(lambda z: obj(z, aux), lambda z: con(z, aux), 2, 1,
+                             IPMOptions(tol=1e-10))(z0, zl, zu, cl, cu)
+        assert int(got.status[0]) == SOLVED
+        assert int(got.iterations[0]) == int(plain.iterations[0])
+        torch.testing.assert_close(got.z, plain.z, rtol=0, atol=1e-12)
+        # the optimum of the projection onto z0 + c z1 = 1
+        a = np.array([1.0, c])
+        p = np.array([1.0, 2.0])
+        want = p - a * (a @ p - 1.0) / (a @ a)
+        np.testing.assert_allclose(got.z[0].numpy(), want, atol=1e-8)
+
+
+@pytest.mark.parametrize("what", ["block_on", "block_auto_large", "report_file",
+                                  "checkpoint_dir"])
+def test_unported_surfaces_raise(what, tmp_path):
+    _, port_problem = problems("brysondenham_none")
+    kw = {"block_on": dict(block_kkt="on"),
+          "block_auto_large": {},
+          "report_file": dict(report_file=str(tmp_path / "r.txt")),
+          "checkpoint_dir": dict(checkpoint_dir=str(tmp_path))}[what]
+    if what == "block_auto_large":
+        # N = 352 collocation points: n = 707 >= block_kkt_threshold
+        port_problem = hypersensitive.make_problem(tf=40.0, degrees=(16,) * 22)
+    item = "item 18" if what in ("report_file", "checkpoint_dir") else "item 13"
+    with pytest.raises(NotImplementedError, match=item):
+        solve(port_problem, port_options("brysondenham_none", False, **kw), device="cpu")
+
+
+def test_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None solves there")
+    _, port_problem = problems("brysondenham_none")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve(port_problem, port_options("brysondenham_none", True))
+
+
+def test_iteration_log(tmp_path):
+    _, port_problem = problems("brysondenham_none")
+    sol = solve(port_problem, port_options(
+        "brysondenham_none", True, iteration_log_dir=str(tmp_path)), device="cpu")
+    lines = (tmp_path / "grid-1-ipm-out.txt").read_text().splitlines()
+    assert lines[0].startswith(f"# lpopc_tpu_torch IPM trace: n={sol.nlp_n} m={sol.nlp_m}")
+    assert f"iterations={sol.iterations}" in lines[0]
+    assert len(lines) == 2 + sol.iterations
+    assert sol.grid_stats[0]["host_syncs"] > 0
+
+
+@pytest.mark.parametrize("cold_fails", [False, True], ids=["cold_restart", "keep_previous"])
+def test_failed_warm_start(monkeypatch, cold_fails):
+    """A warm-started grid that fails is retried cold from the user's guess;
+    if that fails too, the last converged grid is returned."""
+    real = port_solve_mod.solve_on_mesh
+    calls = []
+
+    def flaky(problem, options, prev_sol=None, grid=1, nlp_tol=None, **kw):
+        sol = real(problem, options, prev_sol=prev_sol, grid=grid, nlp_tol=nlp_tol, **kw)
+        calls.append((grid, prev_sol is not None))
+        if grid == 2 and (prev_sol is not None or cold_fails):
+            sol.status = MAX_ITER
+        return sol
+
+    monkeypatch.setattr(port_solve_mod, "solve_on_mesh", flaky)
+    sol = solve(*capped(), device="cpu")
+    assert calls[:3] == [(1, False), (2, True), (2, False)]
+    notes = [(g["grid"], g["note"]) for g in sol.grid_stats]
+    assert (2, "cold-restart") in notes
+    if cold_fails:
+        assert sol.grids == 1 and sol.status == SOLVED and len(calls) == 3
+    else:
+        assert sol.grids == 3 and sol.status == 5     # OCP_REACH_MAX_GRID
+
+
+def test_adaptive_grid_tolerance_polishes(monkeypatch):
+    """Coarse grids get a loosened NLP tolerance keyed to the previous
+    grid's error; a final mesh solved loosely is re-solved at full tolerance."""
+    real = port_solve_mod.solve_on_mesh
+    tols = []
+
+    def loose(problem, options, prev_sol=None, grid=1, nlp_tol=None, **kw):
+        sol = real(problem, options, prev_sol=prev_sol, grid=grid, nlp_tol=nlp_tol, **kw)
+        tols.append(nlp_tol)
+        if nlp_tol is not None:
+            # report what an IPM stopped at the loosened tolerance would
+            sol.kkt_error = 0.5 * nlp_tol
+        return sol
+
+    monkeypatch.setattr(port_solve_mod, "solve_on_mesh", loose)
+    sol = solve(*capped(grid_tol_schedule="adaptive"), device="cpu")
+    err1 = sol.grid_stats[0]["max_error"]
+    assert tols[:2] == [1e-5, max(1e-8, min(1e-5, 0.01 * err1, 1e-7))]
+    assert len(tols) == 4 and tols[3] is None
+    assert [g["note"] for g in sol.grid_stats] == ["", "", "", "polish"]
+    assert sol.status == 5 and sol.grids == 3 and not sol.polish_failed
+    assert sol.kkt_error <= 1e-8
+
+
+def test_path_violation_tol_drives_knots():
+    from lpopc_tpu_torch.models import brysondenham
+
+    sol = solve(brysondenham.make_problem(degrees=(4, 4)), SolveOptions(
+        mesh_method="ph", max_grid_num=3, path_violation_tol=1e-7,
+        ipm=IPMOptions(tol=1e-8, max_iter=300, lane_kkt=True)), device="cpu")
+    assert sol.solved
+    assert np.isfinite(sol.path_violation)
+    assert all("path_violation" in g for g in sol.grid_stats)
+
+
+# ----- README goldens on the port (long on the CPU) -----
+
+def test_brachistochrone_cycloid():
+    from lpopc_tpu_torch.models import brachistochrone
+
+    sol = brachistochrone.solve(SolveOptions(mesh_method="none", max_iterations=150),
+                                device="cpu")
+    assert sol.solved
+    assert abs(sol.phases[0].tf - brachistochrone.analytic_tf()) < 1e-7
+    np.testing.assert_allclose(sol.phases[0].hamiltonian, -1.0, atol=1e-5)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("method", ["ph", "hp-liu"])
+def test_hypersensitive_tf5000(method):
+    sol = hypersensitive.solve(SolveOptions(
+        tol=1e-8, mesh_method=method, max_grid_num=20, desired_relative_error=1e-6,
+        n_max=16, block_kkt="off"), device="cpu", tf=5000.0)
+    assert sol.status == 1 and sol.max_relative_error <= 1e-6
+    np.testing.assert_allclose(sol.objective, 1.33080711, rtol=2e-6)
+    ph = sol.phases[0]
+    mid = np.abs(ph.t_col - 2500.0) < 1500.0
+    assert np.max(np.abs(ph.x[:-1][mid])) < 1e-4
+
+
+@pytest.mark.slow
+def test_lowthrust_radius():
+    from lpopc_tpu_torch.models import lowthrust
+
+    sol = lowthrust.solve(SolveOptions(mesh_method="none", max_iterations=150), device="cpu")
+    assert sol.solved
+    assert abs(-sol.objective - 1.5253) < 1e-4
+    xf = sol.phases[0].x[-1]
+    assert abs(xf[2] - np.sqrt(1.0 / xf[0])) < 1e-7
+
+
+@pytest.mark.slow
+def test_vanderpol_cost():
+    from lpopc_tpu_torch.models import vanderpol
+
+    opts = SolveOptions(mesh_method="none", max_iterations=150)
+    free = vanderpol.solve(opts, device="cpu", bounded=False)
+    assert free.solved and abs(free.objective - 2.8670) < 1e-4
+    bounded = vanderpol.solve(opts, device="cpu", bounded=True)
+    assert bounded.solved and bounded.objective > free.objective
+    np.testing.assert_allclose(bounded.phases[0].x[:, 1].min(), -0.3, atol=1e-6)
+
+
+@pytest.mark.slow
+def test_moonlander_bang_bang():
+    from lpopc_tpu_torch.models import moonlander
+
+    tf_exact, ts_exact, fuel_exact = moonlander.analytic_solution()
+    sol = moonlander.solve(SolveOptions(mesh_method="none", max_iterations=150), device="cpu")
+    assert sol.solved
+    assert abs(sol.objective - fuel_exact) < 1e-3
+    liu = moonlander.solve(SolveOptions(mesh_method="hp-liu", max_grid_num=5),
+                           device="cpu", degrees=(5, 5))
+    assert liu.solved and liu.max_relative_error <= 1e-6
+    assert abs(liu.objective - fuel_exact) < 1e-3
+    tau_switch = 2.0 * ts_exact / liu.phases[0].tf - 1.0
+    assert np.min(np.abs(np.asarray(liu.phases[0].mesh_fractions) - tau_switch)) < 0.2

@@ -75,3 +75,17 @@ def test_gather_assembly_sums_duplicates():
     asm = port_st._GatherAssembly(np.array([2, 0, 2, 2, 5]), 6)
     out = asm(torch.tensor([1.0, 10.0, 2.0, 4.0, 7.0], dtype=torch.float64))
     assert out.tolist() == [10.0, 0.0, 7.0, 0.0, 0.0, 7.0]
+
+
+def test_gather_assembly_tables_stay_small():
+    """One dense entry taking a source from every node (a phase's tf column)
+    must not pad every other entry's table to that count."""
+    rng = np.random.default_rng(0)
+    dest = np.concatenate([np.full(4096, 7), rng.permutation(50_000)[:20_000],
+                           rng.integers(0, 50_000, 3000)])
+    src = rng.standard_normal(dest.shape[0])
+    asm = port_st._GatherAssembly(dest, 50_000)
+    assert sum(t.size for t in asm._tables_np) <= 2 * dest.shape[0]
+    want = np.zeros(50_000)
+    np.add.at(want, dest, src)
+    np.testing.assert_allclose(asm(torch.as_tensor(src)).numpy(), want, rtol=1e-14, atol=1e-12)
