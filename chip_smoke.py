@@ -13,10 +13,11 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
                     batched Cholesky-solve K2) against their plain PyTorch
                     versions on the card, in both variants (shared and
                     global memory), asserts which variant ran at each shape,
-                    checks the NaN contracts, and times kernel, plain
-                    version and the one-call library equivalent with CUDA
-                    events, beside the launch floor of the card and K2's
-                    time against the batch;
+                    checks the NaN contracts and that K2's global variant
+                    gives bitwise identical x on repeated calls, and times
+                    kernel, plain version and the one-call library
+                    equivalent with CUDA events, beside the launch floor of
+                    the card and K2's time against the batch;
 4. ``sweep_lane``   solves the 512-instance brachistochrone sweep through the
                     kernels (``lane_kkt=True``) and checks the objectives;
 5. ``sweep_apply``  the same sweep on the library-matmul route
@@ -303,8 +304,15 @@ HP_N = sorted(set(HP_REFERENCE["ph"]["n"]) | set(HP_REFERENCE["hp-liu"]["n"]))
 KERNEL_SHAPES.update({(1, n, F64): (bl.variant("lane_cholesky", n, 8),
                                     bl.variant("lane_cho_solve", n, 8)) for n in HP_N})
 MAIN_SHAPE = (512, 53, F64)                   # the sweep's
-TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64), (1, 4099, F64))
+TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64), (1, 515, F64), (1, 2051, F64),
+                (1, 4099, F64), (512, 300, F64))
 REL_TOL = {F64: 1e-10, F32: 5e-3}
+# K2's global variant sums each tile's terms in a fixed order, whatever the
+# order in which other blocks publish: REPEATS calls at each of these shapes
+# must give bitwise identical x (one system over the card; several waves of
+# blocks; f32).
+REPEAT_SHAPES = ((1, 4099, F64), (512, 300, F64), (16, 360, F32))
+REPEATS = 50
 
 
 def emit(phase: str, **fields):
@@ -454,6 +462,34 @@ def check_nan_contracts():
             raise AssertionError(f"lane_cho_solve n={n}: a zero diagonal gave a finite x")
         if not bool(torch.isfinite(x[[0, 1, 2, 3, 4, 6, 7]]).all()):
             raise AssertionError(f"lane_cho_solve n={n}: non-finite x leaked into other systems")
+    # one system over the card: the blocks after the bad pivot still finish
+    L, b = random_factor(1, 4099, seed=9)
+    L[0, 2049, 2049] = 0.0
+    x = bl.lane_cho_solve(L, b)
+    torch.cuda.synchronize()
+    if bool(torch.isfinite(x).all()):
+        raise AssertionError("lane_cho_solve (1, 4099): a zero diagonal gave a finite x")
+
+
+def check_repeatable():
+    """K2's global variant, REPEATS calls on the same inputs at each of
+    REPEAT_SHAPES: every x bitwise equal to the first. Returns the calls
+    made per shape."""
+    out = {}
+    for B, n, dtype in REPEAT_SHAPES:
+        L, b = random_factor(B, n, seed=11)
+        L, b = L.to(dtype), b.to(dtype)
+        bl.reset_launches()
+        first = bl.lane_cho_solve(L, b)
+        differ = sum(int(not torch.equal(bl.lane_cho_solve(L, b), first))
+                     for _ in range(REPEATS - 1))
+        if bl.lane_cho_solve.launches_global != REPEATS:
+            raise AssertionError(f"({B}, {n}, {dtype}) did not run K2's global variant")
+        if differ:
+            raise AssertionError(f"lane_cho_solve ({B}, {n}, {dtype}): {differ} of "
+                                 f"{REPEATS - 1} repeated calls differ from the first")
+        out[f"{B}x{n}_{str(dtype).replace('torch.', '')}"] = REPEATS
+    return out
 
 
 def random_factor(B: int, n: int, seed: int):
@@ -517,10 +553,11 @@ def phase_kernels():
         if (B, n, dtype) in TIMED_SHAPES:
             timed[(B, n, dtype)] = kernel_times(K, b, L_plain, x, x_plain, L)
     check_nan_contracts()
+    repeated = check_repeatable()
     one = torch.zeros(1, device=DEVICE)
     launch_floor = event_ms(lambda: one.add_(1))
     emit("kernels", kernels=["lane_cholesky", "lane_cho_solve"], checks=checks,
-         nan_contracts=True, launch_floor_ms=launch_floor,
+         nan_contracts=True, bitwise_repeatable_calls=repeated, launch_floor_ms=launch_floor,
          cho_solve_ms_by_batch=solve_batch_scan(),
          timed={f"{B}x{n}_{str(dt).replace('torch.', '')}": v
                 for (B, n, dt), v in timed.items()})

@@ -33,7 +33,9 @@
 // as 512), and ~0.43 ms at (8, 700), set by the 44 launches' latencies and
 // the 22 passes over the trailing triangle.
 //
-// K2, lane_cho_solve. One WARP per (L, b) system, up to 4 systems per block.
+// K2, lane_cho_solve, replaces `_solve_kernel` (lpopc_tpu/ops/batched_linalg.py
+// :70-107, called at :193). Shared variant (n <= 240 in f64, 256 in f32):
+// one WARP per (L, b) system, up to 4 systems per block.
 // A lane owns rows i = lane (mod 32): its slice of the right-hand side w and
 // of the reciprocal diagonal 1/L[i][i] sit in registers. Step j of the
 // forward sweep broadcasts the owner's running value t_j = w[j] with one
@@ -51,10 +53,16 @@
 // 1.9 us. What sets its time (~8 us on an H100 80GB HBM3 at 700 W, 2 of them
 // the launch) is the
 // latency of one warp's 2n dependent steps after the first panel lands: one
-// system alone takes nearly as long as the full batch. The global variant
-// (n > 256, or a triangle past 227 KB) keeps w in the output x and the
-// reciprocals in a scratch vector, and reads L through L2, columns strided,
-// a few rows' loads in flight at once: correct at every n, not fast.
+// system alone takes nearly as long as the full batch.
+// Global variant (every larger n): a blocked substitution that spreads ONE
+// system over many one-warp blocks, one per tile of 32 rows and direction,
+// ordered by release/acquire counters in a scratch buffer (see the K2 global
+// section). Bound at (1, 4099, f64): L's lower triangle read once, 67 MB at
+// 3.35 TB/s = 0.020 ms. On an H100 80GB HBM3 at 700 W it takes ~0.52 ms
+// there (torch.cholesky_solve ~0.76, the one-warp design it replaced 103),
+// set by the chain of 2 ceil(n/32) = 258 links of ~2 us, each a hand-over
+// between blocks through L2 and a 32-step diagonal solve; the bytes stream
+// beside it. At (512, 300) ~0.22 ms against a bound of 0.056 (bytes).
 //
 // NaN contract (the interior-point solver's inertia logic depends on it): a
 // negative or NaN pivot gives NaN through rsqrt in that column and, through
@@ -822,68 +830,265 @@ __global__ void lane_cho_solve_kernel(const T* __restrict__ L, const T* __restri
     }
 }
 
-// Global variant: one warp per system, one warp per block, L read through
-// L1/L2 (lane i owns rows i mod 32). The running right-hand side w lives in
-// the output x and the reciprocal diagonal in the wrapper's scratch (B, n):
-// any n. __syncwarp orders each step's writes before the next step's reads.
-constexpr int kChunk = 8;   // row blocks whose loads the global variant keeps in flight
+// Global variant: blocked substitution, ONE system spread over many blocks.
+// The rows are cut into tiles of kSolveTile = 32, one row per lane, and
+// each one-warp block takes one tile of one direction:
+//   forward tile i:  y_i = L_ii^-1 (b_i - sum_{k<i} L_ik y_k),
+//   backward tile i: x_i = L_ii^-T (y_i - sum_{k>i} L_ki^T x_k),
+// y kept in x and replaced there by x. The sums are matrix-vector products
+// with tiles that no tile of the chain waits for: lane c takes column c of
+// each tile, so a copy instruction reads one 32-column row segment
+// (coalesced), through a ring of kSolveRing tiles in shared memory that
+// cp.async fills ahead of use while the block waits. Only the 32 x 32
+// diagonal solves (the shared variant's shuffle-FMA chain) and one
+// hand-over between blocks per tile lie on the dependent chain: 2 ceil(n/32)
+// links per system, where the one-warp design had 2n steps.
+//
+// Order between blocks: the scratch holds a ticket counter and, per system,
+// the count of forward tiles done and of backward tiles done. A block
+// publishes its tile with st.release.gpu of the new count after its x
+// stores; a block that needs tile k spins on ld.acquire.gpu until the count
+// passes k, then reads x through L2 (ld.cg). Work goes by the ticket, not
+// by blockIdx: forward items first, tile-major (tile 0 of every system,
+// then tile 1, ...), then backward items from the last tile up. So every
+// item a block waits on was taken by a block already running: no residency
+// or occupancy assumption, no deadlock at any B. The launcher clears the
+// scratch on the stream before the kernel. Every loop has a fixed trip
+// count and every tile is published whatever its values, so a zero or NaN
+// pivot gives non-finite x in its own system and never a hang.
+//
+// Each sum is taken in a fixed order, not in the order the tiles arrive: k
+// increasing forward and decreasing backward, each lane over its own
+// column, then a fixed butterfly across lanes. Repeated calls give bitwise
+// identical x.
+constexpr int kSolveTile = 32;
+constexpr int kSolveRing = 4;   // tiles of L per block in shared memory (3 in flight)
 
+// 8 or 4 bytes, zero-filled (nothing read) when !valid
+__device__ inline void cp_async_zfill(void* smem, const double* gmem, bool valid) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(dst), "l"(gmem), "r"(valid ? 8 : 0) : "memory");
+}
+
+__device__ inline void cp_async_zfill(void* smem, const float* gmem, bool valid) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ inline unsigned ld_acquire(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ inline void st_release(unsigned* p, unsigned v) {
+    asm volatile("st.release.gpu.global.u32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+
+// Spin until the count *p passes k (every lane reads the same word).
+__device__ inline void wait_past(const unsigned* p, int k) {
+    while (ld_acquire(p) <= (unsigned)k) {}
+}
+
+// The tile of L at rows row0 .. row0+31, columns col0 .. col0+31 into a
+// ring slot, as one commit group; lane c copies column c, rows past n are
+// zero-filled. A lane later reads only its own column, so no barrier
+// orders the copies.
 template <typename T>
-__global__ void lane_cho_solve_global_kernel(const T* __restrict__ L, const T* __restrict__ b,
-                                             T* x, T* scratch, int n, long long strideL,
-                                             long long strideB) {
+__device__ inline void issue_tile(T (*slot)[kSolveTile], const T* Lg, int n, int row0, int col0) {
     const int lane = threadIdx.x & 31;
-    const T* Lg = L + (long long)blockIdx.x * strideL;
-    const T* bg = b + (long long)blockIdx.x * strideB;
-    T* w = x + (long long)blockIdx.x * n;
-    T* rinv = scratch + (long long)blockIdx.x * n;
+#pragma unroll 8
+    for (int r = 0; r < kSolveTile; ++r) {
+        const int row = row0 + r;
+        cp_async_zfill(&slot[r][lane], Lg + (size_t)min(row, n - 1) * n + col0 + lane, row < n);
+    }
+    cp_async_commit();
+}
 
-    for (int i = lane; i < n; i += 32) {
-        w[i] = bg[i];
-        rinv[i] = T(1) / Lg[(size_t)i * n + i];
+// Ring step q of `count`: issue tile q + kSolveRing - 1 (an empty group
+// past the last), then wait for tile q, which was group q.
+template <typename T, typename Origin>
+__device__ inline void ring_step(T (*ring)[kSolveTile][kSolveTile], const T* Lg, int n, int q,
+                                 int count, Origin origin) {
+    const int ahead = q + kSolveRing - 1;
+    if (ahead < count) {
+        int row0, col0;
+        origin(ahead, row0, col0);
+        issue_tile(ring[ahead % kSolveRing], Lg, n, row0, col0);
+    } else {
+        cp_async_commit();
     }
+    cp_async_wait(kSolveRing - 1);
+}
+
+// The diagonal tile L_ii into D, zeros above the diagonal, rows past n
+// padded with the identity; returns 1 / L_ii[lane][lane]. Off the diagonal
+// each entry is scaled by the reciprocal of the pivot it multiplies in the
+// chain (its column's forward, its row's backward), so that a chain step is
+// one shuffle and one FMA. Row stride 33: a lane's walk along its own row
+// (forward) and a warp's read of one row (backward) touch distinct banks.
+template <typename T>
+__device__ inline T load_diagonal(T (*D)[kSolveTile + 1], const T* Lg, int n, int i0,
+                                  bool forward) {
+    const int lane = threadIdx.x & 31;
+    const int nb = min(kSolveTile, n - i0);
+    T col[kSolveTile];
+#pragma unroll
+    for (int r = 0; r < kSolveTile; ++r)
+        col[r] = (r < nb && lane <= r) ? Lg[(size_t)(i0 + r) * n + i0 + lane] : T(r == lane);
+    T pivot = T(1);
+#pragma unroll
+    for (int r = 0; r < kSolveTile; ++r)
+        if (r == lane) pivot = col[r];
+    const T rinv = T(1) / pivot;
+#pragma unroll
+    for (int r = 0; r < kSolveTile; ++r)
+        D[r][lane] = col[r] * (forward ? rinv : __shfl_sync(kFullMask, rinv, r));
     __syncwarp();
-    for (int j = 0; j < n; ++j) {
-        const T yj = w[j] * rinv[j];
-        // rows below j, from the first 32-row block that holds one; the
-        // column's entries of kChunk blocks are loaded before any is used,
-        // so their L2 round trips overlap
-        for (int i0 = 32 * ((j + 1) >> 5) + lane; i0 < n; i0 += 32 * kChunk) {
-            T l[kChunk];
+    return rinv;
+}
+
+// One level of lane_sums: lanes with bit S set keep the upper half of
+// a[0 .. 2S-1] and take their partner's, the others the lower half.
+template <int S, typename T>
+__device__ inline void butterfly(T (&a)[kSolveTile], int lane) {
+    const bool upper = lane & S;
 #pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-                const int i = i0 + 32 * u;
-                l[u] = (i > j && i < n) ? Lg[(size_t)i * n + j] : T(0);
-            }
-#pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-                const int i = i0 + 32 * u;
-                if (i > j && i < n) w[i] -= l[u] * yj;
-            }
-        }
-        __syncwarp();
-        if (lane == (j & 31)) w[j] = yj;
+    for (int q = 0; q < S; ++q) {
+        const T send = upper ? a[q] : a[q + S];
+        const T keep = upper ? a[q + S] : a[q];
+        a[q] = keep + __shfl_xor_sync(kFullMask, send, S);
     }
+}
+
+// Lane l holds a[r], its part of row r's sum; returns on lane r the sum of
+// every lane's part of row r. Five levels, 31 shuffles, in a fixed order.
+template <typename T>
+__device__ inline T lane_sums(T (&a)[kSolveTile]) {
+    const int lane = threadIdx.x & 31;
+    butterfly<16>(a, lane);
+    butterfly<8>(a, lane);
+    butterfly<4>(a, lane);
+    butterfly<2>(a, lane);
+    butterfly<1>(a, lane);
+    return a[0];
+}
+
+// Publish tile i's 32 values of x (y forward) and the count `done_now`.
+template <typename T>
+__device__ inline void publish(T* xs, int n, int i0, T w, unsigned* count, unsigned done_now) {
+    const int lane = threadIdx.x & 31;
+    if (i0 + lane < n) __stcg(xs + i0 + lane, w);
     __syncwarp();
-    for (int j = n - 1; j >= 0; --j) {
-        const T xj = w[j] * rinv[j];
-        const T* rowj = Lg + (size_t)j * n;
-        for (int i0 = lane; i0 < j; i0 += 32 * kChunk) {
-            T l[kChunk];
+    if (lane == 0) st_release(count, done_now);
+}
+
+// Forward tile i: lane r ends with y[32i + r]. Lane c accumulates column c
+// of each tile L_ik for all 32 rows; the butterfly gives lane r its row.
+template <typename T>
+__device__ void forward_tile(T (*ring)[kSolveTile][kSolveTile], T (*D)[kSolveTile + 1],
+                             const T* Lg, const T* bg, T* xs, unsigned* fwd, int n, int i) {
+    const int lane = threadIdx.x & 31;
+    const int i0 = kSolveTile * i;
+    auto origin = [i0](int k, int& row0, int& col0) { row0 = i0; col0 = kSolveTile * k; };
 #pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-                const int i = i0 + 32 * u;
-                l[u] = i < j ? rowj[i] : T(0);
-            }
-#pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-                const int i = i0 + 32 * u;
-                if (i < j) w[i] -= l[u] * xj;
-            }
-        }
-        __syncwarp();
-        if (lane == (j & 31)) w[j] = xj;
+    for (int q = 0; q < kSolveRing - 1; ++q) {
+        if (q < i) issue_tile(ring[q], Lg, n, i0, kSolveTile * q);
+        else cp_async_commit();
     }
+    const T rinv = load_diagonal(D, Lg, n, i0, true);
+    const T bi = i0 + lane < n ? bg[i0 + lane] : T(0);
+    T acc[kSolveTile];
+#pragma unroll
+    for (int r = 0; r < kSolveTile; ++r) acc[r] = T(0);
+    for (int k = 0; k < i; ++k) {
+        ring_step(ring, Lg, n, k, i, origin);
+        wait_past(fwd, k);
+        const T yk = __ldcg(xs + kSolveTile * k + lane);
+        T (*tile)[kSolveTile] = ring[k % kSolveRing];
+#pragma unroll
+        for (int r = 0; r < kSolveTile; ++r) acc[r] += tile[r][lane] * yk;
+    }
+    // Rows past n: b = 0 and a zero-filled L give 0, and their identity rows
+    // keep it 0. The chain as in the shared variant: shuffle -> FMA.
+    T w = bi - lane_sums(acc);
+#pragma unroll 4
+    for (int j = 0; j < kSolveTile; ++j) {
+        const T tj = __shfl_sync(kFullMask, w, j);
+        const T u = w - D[lane][j] * tj;
+        w = lane > j ? u : (lane == j ? w * rinv : w);
+    }
+    publish(xs, n, i0, w, fwd, (unsigned)i + 1);
+}
+
+// Backward tile i: lane c ends with x[32i + c]. The tiles below it,
+// k = tiles-1 down to i+1, arrive in that order; lane c sums column c of
+// each, L_ki^T x_k, row by row.
+template <typename T>
+__device__ void backward_tile(T (*ring)[kSolveTile][kSolveTile], T (*D)[kSolveTile + 1],
+                              const T* Lg, T* xs, const unsigned* fwd, unsigned* bwd, int n,
+                              int tiles, int i) {
+    const int lane = threadIdx.x & 31;
+    const int i0 = kSolveTile * i;
+    const int count = tiles - 1 - i;
+    auto origin = [i0, tiles](int q, int& row0, int& col0) {
+        row0 = kSolveTile * (tiles - 1 - q);
+        col0 = i0;
+    };
+#pragma unroll
+    for (int q = 0; q < kSolveRing - 1; ++q) {
+        if (q < count) issue_tile(ring[q], Lg, n, kSolveTile * (tiles - 1 - q), i0);
+        else cp_async_commit();
+    }
+    const T rinv = load_diagonal(D, Lg, n, i0, false);
+    wait_past(fwd, tiles - 1);                 // every forward tile: y complete
+    T acc = T(0);
+    for (int q = 0; q < count; ++q) {
+        ring_step(ring, Lg, n, q, count, origin);
+        wait_past(bwd, q);                     // tile tiles-1-q done
+        const int k0 = kSolveTile * (tiles - 1 - q);
+        const T xk = k0 + lane < n ? __ldcg(xs + k0 + lane) : T(0);
+        T (*tile)[kSolveTile] = ring[q % kSolveRing];
+#pragma unroll
+        for (int r = 0; r < kSolveTile; ++r) acc += tile[r][lane] * __shfl_sync(kFullMask, xk, r);
+    }
+    T w = i0 + lane < n ? __ldcg(xs + i0 + lane) - acc : T(0);
+#pragma unroll 4
+    for (int j = kSolveTile - 1; j >= 0; --j) {
+        const T tj = __shfl_sync(kFullMask, w, j);
+        const T u = w - D[j][lane] * tj;
+        w = lane < j ? u : (lane == j ? w * rinv : w);
+    }
+    publish(xs, n, i0, w, bwd, (unsigned)count + 1);
+}
+
+// One work item per block, 2 B ceil(n/32) in all; `sync` is the wrapper's
+// scratch (cho_solve_global_scratch_bytes), cleared: [0] the ticket, then
+// per system s [1 + 2s] forward tiles done, [2 + 2s] backward tiles done.
+template <typename T>
+__global__ void __launch_bounds__(32)
+lane_cho_solve_global_kernel(const T* __restrict__ L, const T* __restrict__ b, T* x,
+                             unsigned* sync, int B, int n, long long strideL, long long strideB) {
+    __shared__ __align__(16) T ring[kSolveRing][kSolveTile][kSolveTile];
+    __shared__ T D[kSolveTile][kSolveTile + 1];
+    const int tiles = (n + kSolveTile - 1) / kSolveTile;
+    unsigned ticket = 0;
+    if (threadIdx.x == 0) ticket = atomicAdd(sync, 1u);
+    ticket = __shfl_sync(kFullMask, ticket, 0);
+    const unsigned half = (unsigned)B * (unsigned)tiles;
+    const bool forward = ticket < half;
+    const unsigned item = forward ? ticket : ticket - half;
+    const int s = (int)(item % (unsigned)B);
+    const int step = (int)(item / (unsigned)B);
+    unsigned* fwd = sync + 1 + 2 * (size_t)s;
+    const T* Lg = L + s * strideL;
+    T* xs = x + (long long)s * n;
+    if (forward)
+        forward_tile(ring, D, Lg, b + s * strideB, xs, fwd, n, step);
+    else
+        backward_tile(ring, D, Lg, xs, fwd, fwd + 1, n, tiles, tiles - 1 - step);
 }
 
 // ----------------------------------------------------------- launches ------
@@ -975,8 +1180,12 @@ template <typename T>
 int launch_cho_solve_global(const void* L, const void* b, void* x, void* scratch, int B, int n,
                             long long strideL, long long strideB, void* stream) {
     if (B <= 0 || n <= 0) return (int)cudaGetLastError();
-    lane_cho_solve_global_kernel<T><<<B, 32, 0, (cudaStream_t)stream>>>(
-        (const T*)L, (const T*)b, (T*)x, (T*)scratch, n, strideL, strideB);
+    const long long blocks = 2LL * B * ((n + kSolveTile - 1) / kSolveTile);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;   // grid.x, the ticket
+    cudaStream_t s = (cudaStream_t)stream;
+    if (int e = (int)cudaMemsetAsync(scratch, 0, cho_solve_global_scratch_bytes(B), s)) return e;
+    lane_cho_solve_global_kernel<T><<<(int)blocks, 32, 0, s>>>(
+        (const T*)L, (const T*)b, (T*)x, (unsigned*)scratch, B, n, strideL, strideB);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // batched_linalg_layout.h — which variant of each kernel of batched_linalg.cu
-// runs an n x n system, and how much shared memory its shared variant takes.
+// runs an n x n system, how much shared memory its shared variant takes, and
+// how much scratch K2's global variant needs.
 //
 // Plain C++, so the choice has one owner: batched_linalg.cu includes it for
 // its launchers, and batched_linalg_layout.cpp exports the same choice to the
@@ -41,6 +42,11 @@ inline size_t cho_solve_system_bytes(int n, int elem_size) {
 }
 
 inline int solve_rows(int n) { return (n + 31) / 32; }
+
+// K2 global: the scratch the wrapper passes, in bytes: a ticket counter
+// and, per system, the counts of forward and of backward tiles done (32-bit
+// words each). It does not depend on n.
+inline size_t cho_solve_global_scratch_bytes(int B) { return 4 * (1 + 2 * (size_t)B); }
 
 inline Variant cholesky_variant(int n, int elem_size) {
     return cholesky_smem_bytes(n, elem_size) <= kMaxBlockSmem ? kShared : kGlobal;

@@ -14,15 +14,19 @@ They keep the names of the JAX package's ``ops/batched_linalg.py``, whose
 Pallas kernels ``_chol_kernel`` and ``_solve_kernel`` they replace. The TPU
 kernels put the batch on the 128-wide lane axis of ``(n, n, B)`` arrays; the
 CUDA kernels (``csrc/batched_linalg.cu``) work in PyTorch's native
-``(B, n, n)`` layout with no padding: K1 factors in panels of 32 columns
+``(B, n, n)`` layout with no padding. K1 factors in panels of 32 columns
 (one thread block per matrix, or, past shared memory, a few launches per
-panel over many blocks per matrix), K2 gives each system one warp. Each has
-a shared-memory variant, for the matrices that fit one block's shared
-memory, and a global-memory variant with no size limit; :func:`variant`
-chooses from n and the element size, by the rule of
-``csrc/batched_linalg_layout.h`` that the launchers use (built for the host
-with g++, so it needs no GPU). See the note at the top of the ``.cu`` file
-for the designs and their bounds.
+panel over many blocks per matrix). K2's shared variant gives each system
+one warp; its global variant is a blocked substitution in tiles of 32 rows
+that spreads ONE system over many one-warp blocks (one per tile and
+direction), ordered by counters in a scratch buffer that the wrapper
+allocates (:func:`global_scratch_bytes`), so a single large system still
+uses the card. Each kernel has a shared-memory variant, for the matrices
+that fit one block's shared memory, and a global-memory variant with no
+size limit; :func:`variant` chooses from n and the element size, by the
+rule of ``csrc/batched_linalg_layout.h`` that the launchers use (built for
+the host with g++, so it needs no GPU). See the note at the top of the
+``.cu`` file for the designs and their bounds.
 
 **Device rule.** For a CUDA tensor a wrapper launches its kernel or raises.
 Only a tensor that lies on the CPU takes the plain PyTorch version
@@ -80,6 +84,8 @@ def _layout_library():
             f = getattr(lib, f"lpopc_{kernel}_variant")
             f.argtypes = [ctypes.c_int, ctypes.c_int]
             f.restype = ctypes.c_int
+        lib.lpopc_lane_cho_solve_global_scratch_bytes.argtypes = [ctypes.c_int]
+        lib.lpopc_lane_cho_solve_global_scratch_bytes.restype = ctypes.c_longlong
         _layout = lib
     return _layout
 
@@ -95,6 +101,18 @@ def variant(kernel: str, n: int, elem_size: int) -> str:
     if kernel not in ("lane_cholesky", "lane_cho_solve"):
         raise ValueError(f"unknown kernel {kernel!r}")
     return _VARIANTS[getattr(_layout_library(), f"lpopc_{kernel}_variant")(n, elem_size)]
+
+
+def global_scratch_bytes(B: int) -> int:
+    """Bytes of scratch K2's global variant takes for a batch of B systems,
+    by ``csrc/batched_linalg_layout.h``: a ticket counter and two progress
+    counters per system, whatever n."""
+    return int(_layout_library().lpopc_lane_cho_solve_global_scratch_bytes(B))
+
+
+def _global_scratch(B: int, device) -> torch.Tensor:
+    """The scratch K2's global variant is launched with (the launcher clears it)."""
+    return torch.empty(global_scratch_bytes(B), dtype=torch.uint8, device=device)
 
 
 def _count(wrapper, which: str):
@@ -235,9 +253,9 @@ def lane_cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             code = getattr(lib, f"lpopc_lane_cho_solve_{sfx}")(
                 L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, L.stride(0), b.stride(0), stream)
         else:
-            rinv = torch.empty((B, n), dtype=b.dtype, device=b.device)   # scratch
+            scratch = _global_scratch(B, b.device)
             code = getattr(lib, f"lpopc_lane_cho_solve_global_{sfx}")(
-                L.data_ptr(), b.data_ptr(), x.data_ptr(), rinv.data_ptr(), B, n,
+                L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n,
                 L.stride(0), b.stride(0), stream)
     _check_launch(code, f"lane_cho_solve ({which})")
     _count(lane_cho_solve, which)

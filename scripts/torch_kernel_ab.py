@@ -12,12 +12,17 @@ own layout rule then picks the entry point (shared or global variant) that
 it calls at each shape. Every entry point is called with this tree's C
 signature, but for ``--other-k1-scratch``: the other tree's global K1 then
 takes a (B, n) scratch column (versions before the blocked panel
-kernels). K1 is timed at (B, n) = (512, 53), (64, 197) and (8, 700) in
-f64, K2 at (512, 53) (the sweep's shapes and the sizes past it); the inputs are the same for both,
-and the two outputs must agree to 1e-10 relative. Each round runs other,
-this, this, other; each reading is ``chip_smoke.event_ms`` (device time
-per launch, launches back to back). Prints the card's name and power limit,
-then one JSON line. Needs one CUDA device, nvcc and g++.
+kernels). Global K2 has kept its C signature, but not what its scratch
+holds: each call gets a scratch buffer large enough for either tree's
+(the one-warp version's (B, n) reciprocals, this tree's counters). K1 is
+timed at (B, n) = (512, 53), (64, 197) and (8, 700) in f64, K2 at
+(512, 53), (1, 515), (8, 700), (512, 300) and (1, 4099) (the sweep's
+shape, the hp solve's grids at B = 1, and a grid of several waves of
+blocks); the inputs are the same for both, and the two outputs must agree
+to 1e-10 relative. Each round runs other, this, this, other; each reading
+is ``chip_smoke.event_ms`` (device time per launch, launches back to
+back; 10 launches a batch past n = 2000). Prints the card's name and power
+limit, then one JSON line. Needs one CUDA device, nvcc and g++.
 """
 
 from __future__ import annotations
@@ -36,10 +41,11 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402  (exits at once without a CUDA device)
+from lpopc_tpu_torch.ops import batched_linalg as bl  # noqa: E402
 from lpopc_tpu_torch.utils import build  # noqa: E402
 
 K1_SHAPES = ((512, 53), (64, 197), (8, 700))
-K2_SHAPE = (512, 53)
+K2_SHAPES = ((512, 53), (1, 515), (8, 700), (512, 300), (1, 4099))
 VARIANTS = ("shared", "global")
 
 
@@ -54,12 +60,16 @@ class Tree:
         self.lib.lpopc_lane_cholesky_global_f64.argtypes = (
             [vp, vp, vp, i32, i32, i64, vp] if self.scratch else [vp, vp, i32, i32, i64, vp])
         self.lib.lpopc_lane_cho_solve_f64.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp]
+        self.lib.lpopc_lane_cho_solve_global_f64.argtypes = [vp, vp, vp, vp, i32, i32, i64, i64,
+                                                             vp]
         for f in (self.lib.lpopc_lane_cholesky_f64, self.lib.lpopc_lane_cholesky_global_f64,
-                  self.lib.lpopc_lane_cho_solve_f64):
+                  self.lib.lpopc_lane_cho_solve_f64, self.lib.lpopc_lane_cho_solve_global_f64):
             f.restype = i32
         self.layout = ctypes.CDLL(layout_so)
-        self.layout.lpopc_lane_cholesky_variant.argtypes = [i32, i32]
-        self.layout.lpopc_lane_cholesky_variant.restype = i32
+        for kernel in ("lane_cholesky", "lane_cho_solve"):
+            f = getattr(self.layout, f"lpopc_{kernel}_variant")
+            f.argtypes = [i32, i32]
+            f.restype = i32
 
     def k1(self, K, L, stream):
         """A zero-argument launcher of K1 at K's shape, and its variant."""
@@ -76,10 +86,18 @@ class Tree:
         return (lambda: f(K.data_ptr(), L.data_ptr(), B, n, K.stride(0), stream)), which
 
     def k2(self, L, b, x, stream):
+        """A zero-argument launcher of K2 at L's shape, and its variant."""
         B, n, _ = L.shape
-        f = self.lib.lpopc_lane_cho_solve_f64
-        return lambda: f(L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, L.stride(0),
-                         b.stride(0), stream)
+        which = VARIANTS[self.layout.lpopc_lane_cho_solve_variant(n, 8)]
+        if which == "shared":
+            f = self.lib.lpopc_lane_cho_solve_f64
+            return (lambda: f(L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, L.stride(0),
+                              b.stride(0), stream)), which
+        f = self.lib.lpopc_lane_cho_solve_global_f64
+        scratch = torch.empty(B * n * 8 + bl.global_scratch_bytes(B), dtype=torch.uint8,
+                              device=L.device)
+        return (lambda: f(L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n,
+                          L.stride(0), b.stride(0), stream)), which
 
 
 def build_other(cu_path: str):
@@ -122,14 +140,15 @@ def main():
             fn, which = tree.k1(K, L, stream)
             cases[name][t] = (fn, L)
             variants[name][t] = which
-    B, n = K2_SHAPE
-    K, b = cs.spd_batch(B, n, torch.float64, seed=B * 1000 + n)
-    Lf = torch.linalg.cholesky(K)
-    name = f"lane_cho_solve_{B}x{n}"
-    cases[name], variants[name] = {}, {t: "shared" for t in trees}
-    for t, tree in trees.items():
-        x = torch.empty_like(b)
-        cases[name][t] = (tree.k2(Lf, b, x, stream), x)
+    for B, n in K2_SHAPES:
+        Lf, b = cs.random_factor(B, n, seed=B * 1000 + n)
+        name = f"lane_cho_solve_{B}x{n}"
+        cases[name], variants[name] = {}, {}
+        for t, tree in trees.items():
+            x = torch.empty_like(b)
+            fn, which = tree.k2(Lf, b, x, stream)
+            cases[name][t] = (fn, x)
+            variants[name][t] = which
 
     agree = {}
     for name, by_tree in cases.items():
@@ -146,7 +165,9 @@ def main():
     for _ in range(args.rounds):
         for t in ("other", "this", "this", "other"):
             for name, by_tree in cases.items():
-                ms[name][t].append(cs.event_ms(by_tree[t][0]))
+                big = by_tree[t][1].shape[-1] > 2000
+                ms[name][t].append(cs.event_ms(by_tree[t][0], **(
+                    dict(warmup=1, reps=10) if big else {})))
     print(cs.nvidia_smi_line(), flush=True)
     print(json.dumps({
         "dtype": "float64", "rounds": args.rounds, "variants": variants,

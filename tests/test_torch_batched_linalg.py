@@ -55,12 +55,14 @@ def test_lane_cho_solve_matches_interpret_kernel(reference, B, n, dt):
     np.testing.assert_allclose(x.numpy(), x_ref, rtol=0, atol=TOL[dt] * np.abs(x_ref).max())
 
 
-def test_large_n_matches_unbatched_reference():
+@pytest.mark.parametrize("B,n", [(2, 197), (1, 300)])
+def test_large_n_matches_unbatched_reference(B, n):
     """n = 197 (brachistochrone degrees (24, 24)): seven of K1's 32-column
-    panels, the last one ragged. The reference is smart_cholesky_and_solve's unbatched
-    rule (jnp.linalg.cholesky, jax.scipy.linalg.cho_solve), one system at a
-    time; interpret mode would cost seconds at this size."""
-    B, n = 2, 197
+    panels, the last one ragged; n = 300 at B = 1: past both kernels' split
+    into their global variants, whose tiles of 32 end ragged too. The
+    reference is smart_cholesky_and_solve's unbatched rule
+    (jnp.linalg.cholesky, jax.scipy.linalg.cho_solve), one system at a time;
+    interpret mode would cost seconds at this size."""
     K, b = _spd(B, n, np.float64, seed=3)
     chol, solve = ref.smart_cholesky_and_solve()
     L_ref = np.stack([np.asarray(chol(jnp.asarray(K[i]))) for i in range(B)])
@@ -107,6 +109,17 @@ def test_variant_split_follows_the_byte_count(n, dt):
     assert (k1, k2) == VARIANTS[(n, dt)]
     with pytest.raises(ValueError):
         port.variant("lane_lu", n, esz)
+
+
+# K2's global variant takes a scratch of a 32-bit ticket and two 32-bit
+# progress counters per system, whatever n.
+@pytest.mark.parametrize("n", [241, 700, 4099])
+@pytest.mark.parametrize("B", [1, 8, 512])
+def test_global_solve_scratch_follows_the_rule(B, n):
+    assert port.global_scratch_bytes(B) == 4 * (1 + 2 * B)
+    scratch = port._global_scratch(B, torch.device("cpu"))
+    assert scratch.numel() * scratch.element_size() == port.global_scratch_bytes(B)
+    assert port.variant("lane_cho_solve", n, 8) == "global"
 
 
 def test_non_pd_gives_nan_diagonal_without_raising():
