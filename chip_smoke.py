@@ -32,6 +32,20 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
                     to n = 4099, so both kernels' global variants run. It
                     checks the grid count, the mesh history, the objective
                     and the mesh error against the JAX package's run;
+8. ``hp_solve_block`` the ph solve again under the default ``block_kkt="auto"``:
+                    grids 4-6 (n = 1027-4099) take the segment-block KKT
+                    path (``core/block_kkt.py``, ``core/kkt_blocks.py``) and
+                    launch neither kernel, grids 1-3 the kernels as before;
+                    the JAX package's grids, meshes, iterations and objective,
+                    and no (n, n) allocation in a block grid's IPM run;
+9. ``sweep_block``  a 64-instance sweep at degrees (16,) * 11 (n = 709), which
+                    "auto" puts on the block path, under both block
+                    assemblies: no kernel launch, the JAX package's
+                    objectives and per-instance iterations (where rounding
+                    decides the count, within the JAX package's own spread);
+10. ``block_factor`` times the block factorization at ph's grid 6 shapes and
+                    at sweep_block's, against ``cholesky_ex`` +
+                    ``cholesky_solve`` on the same blocks;
 
 and prints one JSON line per phase, then a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -43,6 +57,7 @@ from __future__ import annotations
 
 import json
 import re
+from dataclasses import replace
 import statistics
 import subprocess
 import sys
@@ -55,8 +70,12 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device available (torch.cuda.is_available() is False)")
 
 from lpopc_tpu_torch.core import solve as solve_mod
+from lpopc_tpu_torch.core.block_kkt import factor_from_blocks, make_block_spec
 from lpopc_tpu_torch.core.ipm import SOLVED, IPMOptions
+from lpopc_tpu_torch.core.kkt_blocks import bind_structured_kkt, make_structured_kkt
 from lpopc_tpu_torch.core.solve import SolveOptions
+from lpopc_tpu_torch.core.structured import make_structured_jacobian
+from lpopc_tpu_torch.core.transcribe import const_mesh, transcribe
 from lpopc_tpu_torch.models import brachistochrone, hypersensitive
 from lpopc_tpu_torch.ops import batched_linalg as bl
 from lpopc_tpu_torch.parallel.batch import make_batch_solver
@@ -257,6 +276,65 @@ HP_REFERENCE = {
     },
 }
 
+# hp_solve_block: the ph solve of hp_solve under the default block_kkt="auto"
+# (HP_OPTIONS without block_kkt). The JAX package (lpopc_tpu, CPU, x64,
+# lane_kkt=False; scripts/jax_block_pins.py hp_auto) takes the same 6 grids,
+# meshes, (n, m) and iterations under "auto" as under "off"; its objective
+# and mesh error under "auto":
+HP_BLOCK_OPTIONS = {k: v for k, v in HP_OPTIONS.items() if k != "block_kkt"}
+HP_BLOCK_REFERENCE = dict(HP_REFERENCE["ph"], objective=1.330806900343947,
+                          max_relative_error=2.7153047215122684e-07)
+BLOCK_THRESHOLD = SolveOptions().block_kkt_threshold
+
+# sweep_block: the sweep at degrees (16,) * 11 (N = 176, n = 709, m = 529:
+# "auto" takes the block path), 64 instances perturbed as above, seed 0. The
+# JAX package's per-instance iterations (CPU, x64, lane_kkt=False, which the
+# block path overrides; scripts/jax_block_pins.py sweep_direct, sweep_dense)
+# under block_assembly "direct" (the default, which this phase runs) and
+# "dense", and its objectives ("direct").
+DEGREES_BLOCK = (16,) * 11
+BATCH_BLOCK = 64
+REFERENCE_ITERATIONS_BLOCK = (
+    11, 12, 23, 12, 13, 12, 12, 12, 11, 13, 11, 13, 11, 14, 13, 11,
+    13, 11, 13, 11, 11, 11, 13, 13, 12, 11, 12, 12, 13, 12, 11, 13,
+    13, 12, 12, 13, 13, 13, 13, 11, 11, 15, 13, 13, 12, 18, 13, 15,
+    13, 12, 11, 16, 12, 13, 12, 12, 12, 11, 12, 12, 13, 11, 11, 11,
+)
+REFERENCE_ITERATIONS_BLOCK_DENSE = (
+    11, 12, 20, 12, 13, 12, 12, 12, 11, 13, 11, 13, 11, 14, 13, 11,
+    13, 11, 13, 11, 11, 11, 13, 13, 12, 11, 12, 12, 13, 12, 11, 13,
+    13, 12, 12, 13, 13, 13, 13, 11, 11, 15, 13, 13, 12, 16, 13, 15,
+    13, 12, 11, 16, 12, 13, 12, 12, 12, 11, 12, 12, 13, 11, 11, 11,
+)
+REFERENCE_OBJECTIVES_BLOCK = (
+    0.819908175668475, 0.7775134386471361, 0.8438688678780694, 0.8279257284933823,
+    0.8293333345508759, 0.8266104492286958, 0.8297690804018144, 0.8239430185246179,
+    0.8389531358331863, 0.8028392211251169, 0.7793183052049958, 0.8297659514302349,
+    0.8208656977440398, 0.8557521188234657, 0.8307078479486517, 0.8254060440685754,
+    0.8011120397984065, 0.8138703927429869, 0.8249890500860833, 0.8398792339924165,
+    0.8169291355899836, 0.8186464741408419, 0.8198047526513598, 0.8036487448620543,
+    0.8014299780200679, 0.8286737591592116, 0.8313786834953646, 0.7988516308176647,
+    0.820667525390413, 0.7901608205370304, 0.80411117824394, 0.7947762451182989,
+    0.8089677391347289, 0.8107624289295539, 0.799712097926027, 0.8338800402572847,
+    0.8241556560916962, 0.8147972832603447, 0.8350491734564235, 0.8426033183053429,
+    0.8317607851918808, 0.8248570425696021, 0.8171121129724165, 0.8385745896561068,
+    0.8002034662210474, 0.8515346288134235, 0.7985967602297571, 0.8543406463682558,
+    0.8089165247667417, 0.8462561606930881, 0.8094718402668998, 0.8434703041153849,
+    0.8037283878528103, 0.8236740584112445, 0.7961877012573202, 0.8140295050757328,
+    0.8205653230131568, 0.8320834956847691, 0.8348851666397474, 0.829238410393176,
+    0.8056567122165145, 0.8455177159531911, 0.7961422663831411, 0.8347765234771718,
+)
+# Where rounding decides the count (ROADMAP Queue 3, entry 3): the instances
+# whose count the JAX package itself changes when their starting point is
+# scaled by 1 + 1e-15·U(-1, 1) (scripts/jax_block_pins.py sweep_jitter: each
+# instance 8 times in one batch, copy 0 as it is), with the least and the
+# most iterations it takes there and in the runs above. Every other instance
+# must take the JAX package's count exactly.
+ROUNDING_SPREAD_BLOCK = {
+    "direct": {2: (17, 23), 41: (15, 19), 45: (16, 27), 51: (15, 17)},
+    "dense": {2: (20, 31), 41: (15, 19), 45: (16, 25), 51: (15, 17)},
+}
+
 # Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s in
 # float64 on the tensor cores (K1's trailing update runs there; outside them
 # float64 has half that) and 67 TFLOP/s in float32 outside them (TF32 is
@@ -387,10 +465,12 @@ def spd_batch(B: int, n: int, dtype, seed: int):
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
-    return float((x - ref).abs().max() / ref.abs().max())
+    """Max abs difference over max abs of ``ref`` (absolute where ref is 0)."""
+    diff, scale = float((x - ref).abs().max()), float(ref.abs().max())
+    return diff / scale if scale > 0 else diff
 
 
-def bound(bytes_moved: float, flops: float, dtype):
+def bound_time(bytes_moved: float, flops: float, dtype):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_flops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
@@ -414,8 +494,8 @@ def kernel_times(K, b, L_plain, x, x_plain, L):
     # so B*n*(n+1)/2 entries of either are read; K1 writes the full (B, n, n)
     # factor (zeros above the diagonal), K2 reads b and writes x.
     tri = B * n * (n + 1) // 2
-    k1_bound, k1_by = bound((tri + B * n * n) * esz, B * n ** 3 / 3.0, dtype)
-    k2_bound, k2_by = bound((tri + 2 * B * n) * esz, 2.0 * B * n * n, dtype)
+    k1_bound, k1_by = bound_time((tri + B * n * n) * esz, B * n ** 3 / 3.0, dtype)
+    k2_bound, k2_by = bound_time((tri + 2 * B * n) * esz, 2.0 * B * n * n, dtype)
     bcol = b.unsqueeze(-1)
     return {
         "lane_cholesky": {
@@ -585,11 +665,18 @@ def reset_counters(bs):
 
 
 def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
-                reference=REFERENCE_OBJECTIVES, expect=None):
+                reference=REFERENCE_OBJECTIVES, expect=None, block_iterations=None):
     """One sweep, its counted run and its checks: on the lane route both
     kernels must run their shared variants only, and ``expect`` maps fields
     of the phase's line (iters_p50, first_iterations, launches, host_syncs)
-    to the values they must take."""
+    to the values they must take. With ``block_iterations`` (the JAX
+    package's per-instance counts under its two block assemblies, "direct"
+    and "dense") the sweep must take the block path, and is also run once
+    with block_assembly="dense": no kernel launch in either, every instance
+    solved to the JAX objectives in both, and each instance's count under
+    each assembly equal to the JAX package's, apart from the instances of
+    ``ROUNDING_SPREAD_BLOCK``, whose count must lie within the JAX package's
+    own spread there."""
     problem = brachistochrone.make_problem(degrees=degrees)
     options = SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=lane_kkt))
     bs = make_batch_solver(problem, options)          # device=None: the GPU
@@ -628,7 +715,34 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
     if not obj_err <= OBJECTIVE_TOL:
         raise AssertionError(
             f"{name}: first {nref} objectives differ from the reference by {obj_err}")
-    if lane_kkt:
+    rounding_decides = {}
+    if block_iterations is not None:
+        if launches["lane_cholesky"] or launches["lane_cho_solve"]:
+            raise AssertionError(f"{name}: the block path launched a kernel: {launches}")
+        bl.reset_launches()
+        res_dense = make_batch_solver(problem, replace(options, block_assembly="dense")).run(*args)
+        if bl.lane_cholesky.launches or bl.lane_cho_solve.launches:
+            raise AssertionError(f"{name}: the dense block assembly launched a kernel")
+        dense_err = float(np.max(np.abs(res_dense.objective.cpu().numpy()[:nref]
+                                        - np.asarray(reference))))
+        if not (bool((res_dense.status == SOLVED).all()) and dense_err <= OBJECTIVE_TOL):
+            raise AssertionError(f"{name}: block_assembly='dense' did not solve every "
+                                 f"instance to the reference (objective error {dense_err})")
+        port = {"direct": iterations.tolist(), "dense": res_dense.iterations.cpu().tolist()}
+        for assembly, want in zip(("direct", "dense"), block_iterations):
+            spread, got = ROUNDING_SPREAD_BLOCK[assembly], port[assembly]
+            off = [(i, got[i], want[i]) for i in range(batch)
+                   if not (spread[i][0] <= got[i] <= spread[i][1] if i in spread
+                           else got[i] == want[i])]
+            if off:
+                raise AssertionError(f"{name} ({assembly}): (instance, iterations, JAX's) "
+                                     f"differ: {off}")
+        rounding_decides = {
+            f"{assembly}_{i}": {"port": port[assembly][i], "jax": want[i],
+                                "jax_spread": ROUNDING_SPREAD_BLOCK[assembly][i]}
+            for assembly, want in zip(("direct", "dense"), block_iterations)
+            for i in ROUNDING_SPREAD_BLOCK[assembly]}
+    elif lane_kkt:
         for k in ("lane_cholesky", "lane_cho_solve"):
             if not (by_variant[k]["shared"] > 0 and by_variant[k]["shared"] == launches[k]):
                 raise AssertionError(
@@ -663,39 +777,64 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
          host_syncs=host_syncs, host_syncs_per_iteration=host_syncs / max(outer, 1),
          first_objectives_max_err=obj_err, objectives_compared=nref,
          first_iterations=iterations[:nref].tolist(),
-         nominal_tf=tf, nominal_tf_err=tf_err, nominal_iterations=int(res1.iterations[0]))
+         nominal_tf=tf, nominal_tf_err=tf_err, nominal_iterations=int(res1.iterations[0]),
+         **({} if block_iterations is None else {
+             "block_path": True, "iterations_equal_jax": {
+                 assembly: int(np.sum(np.asarray(port[assembly]) == np.asarray(want)))
+                 for assembly, want in zip(("direct", "dense"), block_iterations)},
+             "rounding_decides": rounding_decides}))
     return launches, by_variant
 
 
 WRAPPERS = {"lane_cholesky": bl.lane_cholesky, "lane_cho_solve": bl.lane_cho_solve}
 
 
-def hp_solve(method: str):
-    """One hp-adaptive solve of the reference configuration through the
-    kernels, with its counted launches per grid, checked against the JAX
-    package's run."""
-    ref = HP_REFERENCE[method]
+def hp_solve(method: str, block: bool = False, off_grids=None):
+    """One hp-adaptive solve of the reference configuration, with its
+    counted launches, walls and peak device memory per grid, checked against
+    the JAX package's run. ``block``: the default block_kkt="auto", where
+    grids with n >= BLOCK_THRESHOLD take the block path and must launch
+    neither kernel nor allocate an (n, n) matrix in their IPM run;
+    ``off_grids``: the per-grid lines of the block_kkt="off" run of the same
+    call, printed beside these."""
+    ref = HP_BLOCK_REFERENCE if block else HP_REFERENCE[method]
     per_grid = []
-    real = solve_mod.solve_on_mesh
+    real, real_run = solve_mod.solve_on_mesh, solve_mod._run_and_extract
 
     def counted(*args, **kw):
         # launches of this grid's solve: the counts before and after it
         before = {k: (w.launches_shared, w.launches_global) for k, w in WRAPPERS.items()}
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sol = real(*args, **kw)
         torch.cuda.synchronize()
-        per_grid.append({
+        per_grid[-1].update({
             "wall_s": time.perf_counter() - t0,
             "launches": {k: {"shared": w.launches_shared - before[k][0],
                              "global": w.launches_global - before[k][1]}
                          for k, w in WRAPPERS.items()}})
         return sol
 
+    def ipm_memory(*args, **kw):
+        # the IPM run and extraction of this grid: the peak it adds on top of
+        # what the grid holds when it starts (transcription, scaling, mesh)
+        torch.cuda.synchronize()
+        grid_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sol = real_run(*args, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        per_grid.append({"peak_mb": max(grid_peak, peak) / 2 ** 20,
+                         "ipm_added_peak_mb": (peak - base) / 2 ** 20})
+        return sol
+
     options = SolveOptions(mesh_method=method, ipm=IPMOptions(tol=1e-8, max_iter=300,
-                                                              lane_kkt=True), **HP_OPTIONS)
+                                                              lane_kkt=True),
+                           **(HP_BLOCK_OPTIONS if block else HP_OPTIONS))
     problem = hypersensitive.make_problem(tf=5000.0)
-    solve_mod.solve_on_mesh = counted
+    solve_mod.solve_on_mesh, solve_mod._run_and_extract = counted, ipm_memory
     try:
         bl.reset_launches()                          # the counted run starts here
         torch.cuda.synchronize()
@@ -704,11 +843,11 @@ def hp_solve(method: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        solve_mod.solve_on_mesh = real
+        solve_mod.solve_on_mesh, solve_mod._run_and_extract = real, real_run
     launches = {k: {"shared": w.launches_shared, "global": w.launches_global}
                 for k, w in WRAPPERS.items()}
 
-    name = f"hp_solve[{method}]"
+    name = f"hp_solve{'_block' if block else ''}[{method}]"
     if sol.status != 1:
         raise AssertionError(f"{name}: status {sol.status}, expected 1 (solved)")
     if sol.grids != ref["grids"] or len(sol.grid_stats) != ref["grids"]:
@@ -731,29 +870,187 @@ def hp_solve(method: str):
         raise AssertionError(f"{name}: max relative error {sol.max_relative_error}")
     grids = []
     for g, (st, pg) in enumerate(zip(sol.grid_stats, per_grid)):
-        if (st["n"], st["m"]) != (ref["n"][g], ref["m"][g]):
-            raise AssertionError(f"{name}: grid {g + 1} (n, m) = {(st['n'], st['m'])}, "
+        n = st["n"]
+        if (n, st["m"]) != (ref["n"][g], ref["m"][g]):
+            raise AssertionError(f"{name}: grid {g + 1} (n, m) = {(n, st['m'])}, "
                                  f"the JAX package's ({ref['n'][g]}, {ref['m'][g]})")
+        if block and st["iterations"] != ref["iterations"][g]:
+            raise AssertionError(f"{name}: grid {g + 1} took {st['iterations']} iterations, "
+                                 f"the JAX package {ref['iterations'][g]}")
+        on_blocks = block and n >= BLOCK_THRESHOLD
         for k, by in pg["launches"].items():
-            want = bl.variant(k, st["n"], 8)
+            if on_blocks:
+                if sum(by.values()):
+                    raise AssertionError(f"{name}: grid {g + 1} (n = {n}) is a block grid "
+                                         f"and launched {k} {by}")
+                continue
+            want = bl.variant(k, n, 8)
             if by[want] == 0 or sum(by.values()) != by[want]:
-                raise AssertionError(f"{name}: grid {g + 1} (n = {st['n']}) launched {k} "
+                raise AssertionError(f"{name}: grid {g + 1} (n = {n}) launched {k} "
                                      f"{by}, expected only its {want} variant")
-        grids.append({"grid": g + 1, "n": st["n"], "m": st["m"],
-                      "iterations": st["iterations"], "jax_iterations": ref["iterations"][g],
-                      "launches": pg["launches"], "host_syncs": st["host_syncs"],
-                      "ipm_wall_s": st["wall_s"], "wall_s": pg["wall_s"]})
+        dense_mb = n * n * 8 / 2 ** 20
+        if on_blocks and not pg["ipm_added_peak_mb"] < dense_mb:
+            raise AssertionError(f"{name}: grid {g + 1}'s IPM run added "
+                                 f"{pg['ipm_added_peak_mb']} MiB, one (n, n) f64 is {dense_mb}")
+        row = {"grid": g + 1, "n": n, "m": st["m"], "block": on_blocks,
+               "iterations": st["iterations"], "jax_iterations": ref["iterations"][g],
+               "launches": pg["launches"], "host_syncs": st["host_syncs"],
+               "ipm_wall_s": st["wall_s"], "wall_s": pg["wall_s"],
+               "peak_mb": pg["peak_mb"], "ipm_added_peak_mb": pg["ipm_added_peak_mb"]}
+        if off_grids is not None:
+            row["off"] = {k: off_grids[g][k] for k in ("ipm_wall_s", "wall_s", "peak_mb")}
+        grids.append(row)
+    dense_ns = [n for n in ref["n"] if not (block and n >= BLOCK_THRESHOLD)]
     for k, by in launches.items():
-        need = ("shared", "global") if any(n >= 241 for n in ref["n"]) else ("shared",)
+        need = ("shared", "global") if any(n >= 241 for n in dense_ns) else ("shared",)
         if any(by[v] == 0 for v in need):
             raise AssertionError(f"{name}: {k} launches {by}, every variant of {need} must run")
-    emit("hp_solve", method=method, status=sol.status, grids=sol.grids,
+    emit("hp_solve_block" if block else "hp_solve", method=method,
+         block_kkt="auto" if block else "off", status=sol.status, grids=sol.grids,
          objective=sol.objective, objective_rel_err_vs_jax=obj_rel,
          objective_rel_err_vs_golden=golden_rel, max_relative_error=sol.max_relative_error,
          jax_max_relative_error=ref["max_relative_error"], mesh_history_matches=True,
          iterations_match=[g["iterations"] for g in grids] == ref["iterations"],
          wall_s=wall, launches=launches, per_grid=grids)
-    return launches
+    return launches, grids
+
+
+def block_factor_inputs(kind: str, device=DEVICE, draws=None):
+    """A bound structured KKT, its spec, and the point where it is
+    assembled: ph's grid 6 (B = 1) or sweep_block's problem (B = 64), scaled
+    as the solver scales it, at the first guess (with a seeded spread over
+    the batch), zero multipliers, seeded positive ``d`` and ``wdiag``, and,
+    as in the IPM, 1e20 on the diagonal of the fixed variables (so K is
+    SPD), with a right-hand side: the blocks the IPM factors are scaled.
+    ``draws``: the random draws of another call, so that the same inputs can
+    be built on another device."""
+    if kind == "hp_grid6":
+        _, count, fr = HP_REFERENCE["ph"]["mesh_history"][-1]
+        problem, batch = hypersensitive.make_problem(
+            tf=5000.0, degrees=(16,) * count, fractions=fr), 1
+    else:
+        problem, batch = brachistochrone.make_problem(degrees=DEGREES_BLOCK), BATCH_BLOCK
+    nlp = transcribe(problem, device=device)
+    spec = make_block_spec(nlp.layout, nlp.ops)
+    sk = make_structured_kkt(problem, nlp.layout, spec)
+    scaled = solve_mod._scale(nlp, SolveOptions(), make_structured_jacobian(
+        problem, nlp.layout, nlp.ops, device=device), device, F64)
+    bound = bind_structured_kkt(sk, const_mesh(nlp.ops, device=device), scaled.obj_scale,
+                                scaled.con_scale, 1.0 / scaled.var_scale)
+    if draws is None:
+        g = torch.Generator(device=device).manual_seed(12)
+        draws = [torch.rand(shape, generator=g, device=device, dtype=F64)
+                 for shape in ((batch, nlp.n), (batch, nlp.n), (batch, nlp.m), (batch, nlp.n))]
+    u_z, u_w, u_d, r = (t.to(device) for t in draws)
+    z = torch.as_tensor(scaled.z0, device=device, dtype=F64) * (1.0 + 0.01 * u_z)
+    jb = bound.jac_blocks(z)
+    hb = bound.hess_blocks(z, torch.zeros((batch, nlp.m), device=device, dtype=F64))
+    fixed = torch.as_tensor(nlp.zu - nlp.zl <= 1e-14, device=device)
+    wdiag = torch.where(fixed, 1e20, 1.0 + u_w)
+    return spec, bound, jb, hb, 1.0 + u_d, wdiag, r, draws
+
+
+def library_block_factor(A, B, C):
+    """The block factorization on torch's library calls: ``cholesky_ex`` of
+    the blocks and of the Schur complement, ``cholesky_solve`` for A⁻¹Bᵀ."""
+    L, _ = torch.linalg.cholesky_ex(A, check_errors=False)
+    W = torch.cholesky_solve(B.transpose(-1, -2), L)
+    Ls, _ = torch.linalg.cholesky_ex(C - torch.einsum("zsnb,zsbm->znm", B, W),
+                                     check_errors=False)
+    return L, W, Ls
+
+
+def library_block_solve(F, B, r_int, r_b):
+    """The interior (B, S, b) and border (B, nb) parts of K⁻¹ r from
+    ``library_block_factor``'s (L, W, Ls)."""
+    L, W, Ls = F
+    y = torch.cholesky_solve(r_int.unsqueeze(-1), L).squeeze(-1)
+    rhs = r_b - torch.einsum("zsnb,zsb->zn", B, y)
+    xb = torch.cholesky_solve(rhs.unsqueeze(-1), Ls).squeeze(-1)
+    return y - torch.einsum("zsbn,zn->zsb", W, xb), xb
+
+
+def phase_block_factor():
+    """The block path's factorization timed on the card at ph's grid 6
+    shapes and at sweep_block's: the direct assembly, factor_from_blocks
+    (``ops/blocked_chol.py``: plain torch, as in the JAX package), one whole
+    ``factorize`` (assembly + factor_from_blocks) and the block solve,
+    against ``cholesky_ex`` + ``cholesky_solve`` on the same blocks. Device
+    ms of back-to-back calls; a host-paced call counts the host's time (see
+    ``event_ms``), so ``factorize_host_ms`` gives one synchronized call's
+    wall too."""
+    out = {}
+    for kind in ("hp_grid6", "sweep_block"):
+        spec, bound, jb, hb, d, wdiag, r, draws = block_factor_inputs(kind)
+        A, Bm, C = bound.assemble(jb, hb, d, wdiag)
+        F = factor_from_blocks(A, Bm, C)
+        if not bool(bound.factor_ok(F).all()):
+            raise AssertionError(f"block_factor[{kind}]: the factorization failed")
+        x = bound.fsolve(F, r)
+        Kx = bound.hv(hb, x) + wdiag * x + bound.jtv(jb, d * bound.jv(jb, x))
+        resid = float((Kx - r).abs().max() / r.abs().max())
+        # the same inputs through the CPU's ops: the GPU's scatters, gathers
+        # and batched products give the same blocks, matvecs and solve
+        _, bound_c, jb_c, hb_c, d_c, wdiag_c, r_c, _ = block_factor_inputs(
+            kind, torch.device("cpu"), draws)
+        got = {"A": A, "B": Bm, "C": C, "jv": bound.jv(jb, x),
+               "jtv": bound.jtv(jb, d), "hv": bound.hv(hb, x), "x": x}
+        x_c = x.cpu()
+        want = dict(zip("ABC", bound_c.assemble(jb_c, hb_c, d_c, wdiag_c)))
+        want.update(jv=bound_c.jv(jb_c, x_c), jtv=bound_c.jtv(jb_c, d_c),
+                    hv=bound_c.hv(hb_c, x_c), x=bound_c.fsolve(
+                        factor_from_blocks(want["A"], want["B"], want["C"]), r_c))
+        vs_cpu = {k: rel_err(got[k].cpu(), want[k]) for k in got}
+        if not (max(v for k, v in vs_cpu.items() if k != "x") <= 1e-12 and vs_cpu["x"] <= 1e-9):
+            raise AssertionError(f"block_factor[{kind}]: the card and the CPU differ: {vs_cpu}")
+        # the library route on the same blocks gives the same x
+        ii = torch.as_tensor(spec.interior_idx.astype(np.int64), device=DEVICE)
+        mask = torch.as_tensor(spec.interior_mask, device=DEVICE)
+        bi = torch.as_tensor(spec.border_idx.astype(np.int64), device=DEVICE)
+        r_int = torch.where(mask, r[:, ii], torch.zeros((), dtype=F64, device=DEVICE))
+        Fl = library_block_factor(A, Bm, C)
+        xi, xb = library_block_solve(Fl, Bm, r_int, r[:, bi])
+        x_lib = torch.zeros_like(x)
+        x_lib[:, bi] = xb
+        x_lib[:, ii[mask]] = xi[:, mask]
+        lib_diff = rel_err(x_lib, x)
+        if not (resid <= 1e-8 and lib_diff <= 1e-8):
+            raise AssertionError(f"block_factor[{kind}]: residual {resid}, against the "
+                                 f"library route {lib_diff}")
+        Z, S, b, _ = A.shape
+        nb = C.shape[-1]
+        # factor_from_blocks: A, B, C read once; L, Ainv (S b²), W (S b nb),
+        # Ls, Sinv (nb²) written once; Cholesky + triangular inverse + A⁻¹ of
+        # each block, W = A⁻¹Bᵀ, the Schur product, the same three on the
+        # Schur complement
+        moved = (A.numel() + Bm.numel() + C.numel() + 2 * A.numel() + Bm.numel()
+                 + 2 * C.numel()) * A.element_size()
+        flops = Z * (S * (b ** 3 / 3 + b ** 3 / 3 + b ** 3 + 2 * b * b * nb + 2 * b * nb * nb)
+                     + nb ** 3 / 3 + nb ** 3 / 3 + nb ** 3)
+        f_bound, f_by = bound_time(moved, flops, F64)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bound.factorize(jb, hb, d, wdiag)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        timing = dict(warmup=2, reps=10)
+        out[kind] = {
+            "B": Z, "S": S, "b": b, "nb": nb, "block_solve_residual": resid,
+            "library_route_rel_diff": lib_diff, "rel_diff_vs_cpu": vs_cpu,
+            "assemble_ms": event_ms(lambda: bound.assemble(jb, hb, d, wdiag), **timing),
+            "factor_from_blocks_ms": event_ms(lambda: factor_from_blocks(A, Bm, C), **timing),
+            "library_factor_ms": event_ms(lambda: library_block_factor(A, Bm, C), **timing),
+            "factor_bound_ms": f_bound, "factor_bound_by": f_by,
+            "factorize_ms": event_ms(lambda: bound.factorize(jb, hb, d, wdiag), **timing),
+            "factorize_host_ms": statistics.median(host),
+            "block_solve_ms": event_ms(lambda: bound.fsolve(F, r), **timing),
+            "library_solve_ms": event_ms(
+                lambda: library_block_solve(Fl, Bm, r_int, r[:, bi]), **timing),
+        }
+    emit("block_factor", **out)
+    return out
 
 
 def main():
@@ -774,18 +1071,28 @@ def main():
     _, by_variant_large = phase_sweep(
         "sweep_lane_large", lane_kkt=True, degrees=DEGREES_LARGE, batch=BATCH_LARGE,
         reference=REFERENCE_OBJECTIVES_LARGE, expect=EXPECT_LANE_LARGE)
-    hp = {method: hp_solve(method) for method in ("ph", "hp-liu")}
+    hp, hp_grids = {}, {}
+    for method in ("ph", "hp-liu"):
+        hp[method], hp_grids[method] = hp_solve(method)
+    hp["block_ph"], _ = hp_solve("ph", block=True, off_grids=hp_grids["ph"])
+    _, by_variant_block = phase_sweep(
+        "sweep_block", lane_kkt=True, degrees=DEGREES_BLOCK, batch=BATCH_BLOCK,
+        reference=REFERENCE_OBJECTIVES_BLOCK,
+        block_iterations=(REFERENCE_ITERATIONS_BLOCK, REFERENCE_ITERATIONS_BLOCK_DENSE))
+    phase_block_factor()
 
     source = "lpopc_tpu_torch/csrc/batched_linalg.cu"
     replaces = {"lane_cholesky": "lpopc_tpu/ops/batched_linalg.py:128",
                 "lane_cho_solve": "lpopc_tpu/ops/batched_linalg.py:193"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source, "replaces": replaces[k],
-         # this slice's path: the hp solve, ph and hp-Liu runs together
+         # the hp solve's paths together: ph and hp-Liu under block_kkt="off",
+         # and ph under "auto", whose block grids launch neither kernel
          "launches": sum(sum(hp[m][k].values()) for m in hp), **timed[MAIN_SHAPE][k],
          "launches_by_variant": {"sweep_lane": by_variant[k],
                                  "sweep_lane_large": by_variant_large[k],
-                                 **{f"hp_solve_{m}": hp[m][k] for m in hp}},
+                                 **{f"hp_solve_{m}": hp[m][k] for m in hp},
+                                 "sweep_block": by_variant_block[k]},
          "launch_floor_ms": launch_floor,
          "at_shapes": [{"B": B, "n": n, "dtype": str(dt).replace("torch.", ""), **timed[
              (B, n, dt)][k]} for (B, n, dt) in TIMED_SHAPES if (B, n, dt) != MAIN_SHAPE]}

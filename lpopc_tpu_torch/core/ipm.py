@@ -202,16 +202,21 @@ def _mtv(M, u):
 
 
 def _sel(mask, new, old):
-    """Per-instance select over a tree (tensor / tuple / dict) of batched
-    leaves: ``mask`` is (B,) and broadcasts over each leaf's trailing axes."""
+    """Per-instance select over a tree (tensor / tuple / named tuple / dict)
+    of batched leaves: ``mask`` is (B,) and broadcasts over each leaf's
+    trailing axes."""
     if isinstance(new, dict):
         return {k: _sel(mask, new[k], old[k]) for k in new}
+    if isinstance(new, tuple) and hasattr(new, "_fields"):
+        return type(new)(*(_sel(mask, a, b) for a, b in zip(new, old)))
     if isinstance(new, (tuple, list)):
         return tuple(_sel(mask, a, b) for a, b in zip(new, old))
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
 
 
 def _zeros_like_tree(tree):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zeros_like_tree(t) for t in tree))
     if isinstance(tree, (tuple, list)):
         return tuple(_zeros_like_tree(t) for t in tree)
     return torch.zeros_like(tree)
@@ -258,14 +263,18 @@ def build_solver(
     functions un-batched. So one solver serves every mesh with the same
     degree signature.
 
-    ``kkt_factorizer`` and ``structured_kkt`` (the block-KKT factorization
-    for large n) are not ported yet and raise ``NotImplementedError``.
+    ``structured_kkt`` — a :class:`.kkt_blocks.BoundKKT` (or, with
+    ``takes_aux``, a factory ``aux -> BoundKKT``) — goes fully matrix-free:
+    J/H matvecs from per-node blocks and DIRECT per-segment assembly of the
+    condensed KKT into (A, B, C) block form, no dense (m, n)/(n, n)
+    intermediates (O(S·b²) memory); it overrides jac_fn/hess_fn/
+    kkt_factorizer/lane_kkt. ``kkt_factorizer`` is an optional
+    ``(factorize, solve, factor_ok)`` triple replacing the dense Cholesky on
+    the (equilibrated) condensed K — e.g. the segment-block + border-Schur
+    factorization of :mod:`.block_kkt`; it takes precedence over
+    ``lane_kkt``.
     """
     opt = options
-    if kkt_factorizer is not None or structured_kkt is not None:
-        raise NotImplementedError(
-            "kkt_factorizer / structured_kkt (the segment-block KKT "
-            "factorization) belong to the large-n KKT slice of the port")
     if opt.ls_mode == "parallel" and (opt.soc is True or opt.watchdog):
         # both mechanisms live in the sequential search; failing loudly
         # beats a silently inert flag (soc=None resolving to on is fine to
@@ -278,7 +287,9 @@ def build_solver(
         dL = torch.diagonal(L, dim1=-2, dim2=-1)
         return torch.isfinite(dL).all(-1) & (dL.amin(-1) > 0.0)
 
-    if opt.lane_kkt:
+    if kkt_factorizer is not None:
+        _factorize, _fsolve, _factor_ok = kkt_factorizer
+    elif opt.lane_kkt:
         from ..ops.batched_linalg import lane_cho_solve, lane_cholesky
 
         _factorize = lane_cholesky
@@ -379,6 +390,12 @@ def build_solver(
             )
         else:
             grad_f, obj_b, con_b, hess_l, jac_c = lifted
+        sk = (
+            structured_kkt(aux)
+            if (structured_kkt is not None and takes_aux)
+            else structured_kkt
+        )
+        use_sk = sk is not None
         dtype, dev = z0.dtype, z0.device
         B = z0.shape[0]
         sc = lambda v: torch.full((B,), float(v), dtype=dtype, device=dev)
@@ -459,11 +476,17 @@ def build_solver(
             """Shared pieces of IPOPT's scaled optimality error E_mu (eq. 5).
             One gradient + Jacobian + constraint evaluation serves the barrier
             (E_mu) and outer (E_0) tests AND is carried into the next
-            iteration's step (which needs exactly g/J/c at this point)."""
+            iteration's step (which needs exactly g/J/c at this point).
+            The carried Jacobian is the dense (B, m, n) one, or the per-node
+            block tree in structured-KKT mode."""
             z = w[:, :n]
             g_z = grad_f(z)
-            J = jac_c(z)
-            jt = _mtv(J, lam)
+            if use_sk:
+                J = sk.jac_blocks(z)
+                jt = sk.jtv(J, lam)
+            else:
+                J = jac_c(z)
+                jt = _mtv(J, lam)
             c_val = con_b(z)
             g = torch.cat([g_z, zeros_bm], dim=1)
             jt_lam = torch.cat([jt, -lam], dim=1)
@@ -538,10 +561,16 @@ def build_solver(
             z = w[:, :n]
             gl, gu = gaps(w)
             g_z, J, c_val = gjc  # carried from the previous convergence check
-            H = hess_l(z, lam)
-            jv_ = lambda v: _mv(J, v)
-            jtv_ = lambda u: _mtv(J, u)
-            hv_ = lambda v: _mv(H, v)
+            if use_sk:
+                Hop = sk.hess_blocks(z, lam)
+                jv_ = lambda v: sk.jv(J, v)
+                jtv_ = lambda u: sk.jtv(J, u)
+                hv_ = lambda v: sk.hv(Hop, v)
+            else:
+                H = hess_l(z, lam)
+                jv_ = lambda v: _mv(J, v)
+                jtv_ = lambda u: _mtv(J, u)
+                hv_ = lambda v: _mv(H, v)
             r_p = c_val - w[:, n:]
 
             sigma = torch.where(has_lo, zl_d / gl, zero) + torch.where(has_up, zu_d / gu, zero)
@@ -592,11 +621,13 @@ def build_solver(
                 sig_s = sigma_s + _u(delta_w)
                 d = sig_s / (1.0 + delta_c * sig_s)
                 wdiag = sigma_z + _u(delta_w)
+                if use_sk:
+                    return sk.factorize(J, Hop, d, wdiag)
                 K = H + torch.diag_embed(wdiag) + (J.transpose(1, 2) * d[:, None, :]) @ J
                 return (_eq_factorize(K), K)
 
             def solve_with(F, r):
-                return _eq_solve(F[0], r)
+                return sk.fsolve(F, r) if use_sk else _eq_solve(F[0], r)
 
             def make_step(delta_w):
                 sig_s = sigma_s + _u(delta_w)                    # Ŝ
@@ -604,8 +635,12 @@ def build_solver(
                 wdiag = sigma_z + _u(delta_w)
                 F = factor_at(delta_w)
                 solveK = lambda r: solve_with(F, r)
-                okF = _eq_ok(F[0])
-                kv = lambda v: _mv(F[1], v)
+                if use_sk:
+                    okF = sk.factor_ok(F)
+                    kv = lambda v: hv_(v) + wdiag * v + jtv_(d * jv_(v))
+                else:
+                    okF = _eq_ok(F[0])
+                    kv = lambda v: _mv(F[1], v)
 
                 def finish(dz_, rb, rc):
                     """Back out (ds, dlam) from a condensed solution dz_."""

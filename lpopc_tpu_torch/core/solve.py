@@ -19,10 +19,16 @@ per-signature solver caches have nothing to save here. Shape bucketing
 sequence of meshes: with it the solver takes the mesh fractions and scale
 vectors as a runtime ``aux`` input, as the JAX package's does.
 
-Not ported yet, and raising ``NotImplementedError``: the block-KKT
-factorization (engaged at n >= ``block_kkt_threshold`` under
-``block_kkt="auto"``, or by ``"on"``; ROADMAP Queue 1, item 13), and the
-``report_file`` / ``checkpoint_dir`` outputs (item 18).
+From ``block_kkt_threshold`` variables on under ``block_kkt="auto"`` (or
+always under ``"on"``) a grid takes the segment-block + border-Schur
+factorization of :mod:`.block_kkt`: assembled straight from the per-node
+blocks by :mod:`.kkt_blocks` (``block_assembly="direct"``, the default: no
+dense J, H or K, and the dense Hessian assembler is not built), or gathered
+out of the dense K (``"dense"``). Such a grid launches neither kernel of
+:mod:`..ops.batched_linalg`, as in the JAX package.
+
+Not ported yet, and raising ``NotImplementedError``: the ``report_file`` /
+``checkpoint_dir`` outputs (ROADMAP Queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -355,23 +361,60 @@ def _block_engaged(nlp, options: SolveOptions) -> bool:
     return True
 
 
-def _dense_only(nlp, options: SolveOptions) -> None:
-    """Raise where the JAX package would engage the block-KKT path."""
-    if _block_engaged(nlp, options):
-        raise NotImplementedError(
-            f"the block-KKT factorization would engage here (block_kkt="
-            f"{options.block_kkt!r}, n={nlp.n}); it belongs to the large-n KKT "
-            "item of the port (ROADMAP Queue 1, item 13) — pass "
-            "block_kkt='off' for the dense path")
+def _kkt_factorizer(nlp, options: SolveOptions):
+    """Build the block-KKT factorizer triple when enabled/beneficial."""
+    if not _block_engaged(nlp, options):
+        return None
+    from .block_kkt import make_block_factorizer, make_block_spec
+
+    spec = make_block_spec(nlp.layout, nlp.ops)
+    if spec is None:
+        return None
+    return make_block_factorizer(spec)
 
 
-def _structured(problem: Problem, nlp, options: SolveOptions, device, dtype):
-    """Fixed-mesh structured (jac, hess) assemblers, or (None, None)."""
+def _kkt_structured(problem: Problem, nlp, options: SolveOptions):
+    """Mesh/scale-parametric StructuredKKT (matrix-free direct block
+    assembly) when the block path engages with block_assembly="direct";
+    callers bind mesh + scales via kkt_blocks.bind_structured_kkt."""
+    if not _block_engaged(nlp, options):
+        return None
+    if options.block_assembly != "direct" or not options.structured_derivatives:
+        return None
+    from .block_kkt import make_block_spec
+    from .kkt_blocks import make_structured_kkt
+
+    spec = make_block_spec(nlp.layout, nlp.ops)
+    if spec is None:
+        return None
+    return make_structured_kkt(
+        problem, nlp.layout, spec,
+        gauss_newton=(options.hessian_approximation == "gauss-newton"),
+    )
+
+
+def _bind_fixed_mesh(sk, nlp, scaled, device, dtype):
+    """The structured KKT bound to ``nlp``'s own mesh and the scaling."""
+    from .kkt_blocks import bind_structured_kkt
+    from .transcribe import const_mesh
+
+    return bind_structured_kkt(
+        sk, const_mesh(nlp.ops, device=device, dtype=dtype), scaled.obj_scale,
+        scaled.con_scale, 1.0 / scaled.var_scale,
+    )
+
+
+def _structured(problem: Problem, nlp, options: SolveOptions, device, dtype,
+                hessian: bool = True):
+    """Fixed-mesh structured (jac, hess) assemblers, or (None, None); with
+    ``hessian=False`` only the Jacobian (what scaling needs)."""
     if not options.structured_derivatives:
         return None, None
     from .structured import make_structured_hessian, make_structured_jacobian
 
     jac = make_structured_jacobian(problem, nlp.layout, nlp.ops, device=device, dtype=dtype)
+    if not hessian:
+        return jac, None
     hess = make_structured_hessian(
         problem, nlp.layout, nlp.ops,
         gauss_newton=(options.hessian_approximation == "gauss-newton"),
@@ -424,8 +467,17 @@ def _build_rt_solver(problem: Problem, nlp, options: SolveOptions):
     def con_aux(z, aux):
         return aux["sc"] * con_m(z / aux["v"], _mesh(aux))
 
-    jac_aux = hess_aux = None
-    if options.structured_derivatives:
+    sk = _kkt_structured(problem, nlp, options)
+    jac_aux = hess_aux = sk_factory = kkt_fact = None
+    if sk is not None:
+        # the IPM runs on the per-node blocks alone: no dense assembler
+        from .kkt_blocks import bind_structured_kkt
+
+        def sk_factory(aux):
+            return bind_structured_kkt(sk, _mesh(aux), aux["sf"], aux["sc"], 1.0 / aux["v"])
+    else:
+        kkt_fact = _kkt_factorizer(nlp, options)
+    if sk is None and options.structured_derivatives:
         from .structured import (
             make_structured_hessian_mesh,
             make_structured_jacobian_mesh,
@@ -448,7 +500,8 @@ def _build_rt_solver(problem: Problem, nlp, options: SolveOptions):
 
     return build_solver(
         obj_aux, con_aux, nlp.n, nlp.m, options.ipm_options(),
-        jac_fn=jac_aux, hess_fn=hess_aux, takes_aux=True,
+        jac_fn=jac_aux, hess_fn=hess_aux,
+        kkt_factorizer=kkt_fact, structured_kkt=sk_factory, takes_aux=True,
     )
 
 
@@ -507,7 +560,6 @@ def _solve_on_mesh_rt(
 ) -> Solution:
     """Runtime-mesh counterpart of :func:`solve_on_mesh`."""
     nlp = transcribe(problem, device=device, dtype=dtype)
-    _dense_only(nlp, options)
     jac_scale = None
     if options.structured_derivatives:
         from .structured import make_structured_jacobian
@@ -540,15 +592,21 @@ def solve_on_mesh(
             device=device, dtype=dtype,
         )
     nlp = transcribe(problem, device=device, dtype=dtype)
-    _dense_only(nlp, options)
-    jac_raw, hess_raw = _structured(problem, nlp, options, device, dtype)
+    sk = _kkt_structured(problem, nlp, options)
+    jac_raw, hess_raw = _structured(problem, nlp, options, device, dtype,
+                                    hessian=sk is None)
     scaled = _scale(nlp, options, jac_raw, device, dtype)
-    jac_fn = hess_fn = None
-    if jac_raw is not None:
-        jac_fn, hess_fn = scaled.wrap_structured(jac_raw, hess_raw)
+    jac_fn = hess_fn = bound_sk = kkt_fact = None
+    if sk is not None:
+        bound_sk = _bind_fixed_mesh(sk, nlp, scaled, device, dtype)
+    else:
+        if jac_raw is not None:
+            jac_fn, hess_fn = scaled.wrap_structured(jac_raw, hess_raw)
+        kkt_fact = _kkt_factorizer(nlp, options)
     solver = build_solver(
         scaled.objective, scaled.constraints, nlp.n, nlp.m,
         options.ipm_options(), jac_fn=jac_fn, hess_fn=hess_fn,
+        kkt_factorizer=kkt_fact, structured_kkt=bound_sk,
     )
     return _run_and_extract(problem, nlp, scaled, solver, options, prev_sol, grid,
                             nlp_tol, None, device, dtype)

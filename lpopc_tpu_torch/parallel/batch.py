@@ -27,7 +27,7 @@ import torch
 from ..core.ipm import IPMOptions, build_solver
 from ..core.problem import Problem
 from ..core.scaling import scale_nlp
-from ..core.solve import SolveOptions, _dense_only
+from ..core.solve import SolveOptions, _bind_fixed_mesh, _kkt_factorizer, _kkt_structured
 from ..core.transcribe import transcribe
 from ..utils.device import resolve_device
 
@@ -120,26 +120,31 @@ def make_batch_solver(
             "scale-out slice of the port")
     options = validate(options)
     nlp = transcribe(problem, device=device, dtype=dtype)
-    _dense_only(nlp, options)
-    jac_raw = hess_raw = None
-    if getattr(options, "structured_derivatives", True):
-        from ..core.structured import make_structured_hessian, make_structured_jacobian
-
-        jac_raw = make_structured_jacobian(
-            problem, nlp.layout, nlp.ops, device=device, dtype=dtype)
-        hess_raw = make_structured_hessian(
-            problem, nlp.layout, nlp.ops,
-            gauss_newton=(options.hessian_approximation == "gauss-newton"),
-            device=device, dtype=dtype,
-        )
     scaled = scale_nlp(
         nlp.objective, nlp.constraints, nlp.zl, nlp.zu, nlp.cl, nlp.cu, nlp.z0,
         enabled=options.auto_scale, variable_scaling=options.variable_scaling,
         samples=options.scale_samples, device=device, dtype=dtype,
     )
-    jac_fn = hess_fn = None
-    if jac_raw is not None:
-        jac_fn, hess_fn = scaled.wrap_structured(jac_raw, hess_raw)
+    # the block path (n >= block_kkt_threshold under "auto", or "on") runs on
+    # the per-node blocks alone: the dense assemblers are then not built
+    sk = _kkt_structured(problem, nlp, options)
+    jac_fn = hess_fn = bound_sk = kkt_fact = None
+    if sk is not None:
+        bound_sk = _bind_fixed_mesh(sk, nlp, scaled, device, dtype)
+    else:
+        if getattr(options, "structured_derivatives", True):
+            from ..core.structured import make_structured_hessian, make_structured_jacobian
+
+            jac_fn, hess_fn = scaled.wrap_structured(
+                make_structured_jacobian(
+                    problem, nlp.layout, nlp.ops, device=device, dtype=dtype),
+                make_structured_hessian(
+                    problem, nlp.layout, nlp.ops,
+                    gauss_newton=(options.hessian_approximation == "gauss-newton"),
+                    device=device, dtype=dtype,
+                ),
+            )
+        kkt_fact = _kkt_factorizer(nlp, options)
     ipm_base = options.ipm_options()
     if ipm_base.soc is None:
         # Lockstep sweep surface: every instance-iteration pays the
@@ -150,6 +155,7 @@ def make_batch_solver(
     solver = build_solver(
         scaled.objective, scaled.constraints, nlp.n, nlp.m, ipm_base,
         jac_fn=jac_fn, hess_fn=hess_fn,
+        kkt_factorizer=kkt_fact, structured_kkt=bound_sk,
     )
 
     def to_dev(a):

@@ -127,10 +127,46 @@ def test_unported_surfaces_raise(port_solvers):
     for kw in (dict(mesh=object()), dict(donate=True), dict(two_stage=True)):
         with pytest.raises(NotImplementedError):
             make_batch_solver(problem, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="block"):
-        make_batch_solver(problem, SolveOptions(block_kkt="on"), device="cpu")
     bs = port_solvers["3x3_b4_lane"]
     with pytest.raises(NotImplementedError):
         bs.x0_sensitivities(None)
     with pytest.raises(NotImplementedError):
         bs.q_sensitivities(None)
+
+
+@pytest.mark.parametrize("assembly", ["direct", "dense"])
+def test_block_kkt_on_takes_the_block_path(port_solvers, monkeypatch, assembly):
+    """``block_kkt="on"`` builds the sweep on the block factorization (the
+    structured KKT for "direct", the block factorizer of the dense K for
+    "dense"), never calls K1/K2 (their plain versions here) although the
+    options ask for the lane route, and reaches the dense route's optima."""
+    from lpopc_tpu_torch.core import block_kkt, kkt_blocks
+    from lpopc_tpu_torch.ops import batched_linalg as bl
+
+    degrees, batch, _ = CASES["3x3_b4_lane"]
+    dense_res = port_solvers["3x3_b4_lane"].run(
+        *_perturbed(port_solvers["3x3_b4_lane"], batch))
+    calls = {"blocks": 0, "dense": 0}
+    real = block_kkt.factor_from_blocks
+
+    def counted(*a):
+        calls["blocks"] += 1
+        return real(*a)
+
+    def dense(*a):
+        calls["dense"] += 1
+        raise AssertionError("K1/K2 ran on the block path")
+
+    monkeypatch.setattr(block_kkt, "factor_from_blocks", counted)
+    monkeypatch.setattr(kkt_blocks, "factor_from_blocks", counted)
+    monkeypatch.setattr(bl, "lane_cholesky_plain", dense)
+    monkeypatch.setattr(bl, "lane_cho_solve_plain", dense)
+    bs = make_batch_solver(
+        port_model.make_problem(degrees=degrees),
+        SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=True),
+                     block_kkt="on", block_assembly=assembly), device="cpu")
+    res = bs.run(*_perturbed(bs, batch))
+    assert res.status.tolist() == [SOLVED] * batch
+    np.testing.assert_allclose(res.objective.numpy(), dense_res.objective.numpy(),
+                               rtol=0, atol=OBJ_TOL)
+    assert calls["blocks"] > 0 and calls["dense"] == 0

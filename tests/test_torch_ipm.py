@@ -121,14 +121,102 @@ def test_explicit_soc_or_watchdog_with_parallel_line_search_raises():
     _port_solver(ls_mode="parallel")   # soc=None is a surface default: fine
 
 
-def test_unported_hooks_raise():
-    obj = lambda z: (z ** 2).sum()
-    con = lambda z: z[:1]
-    for kw in (dict(kkt_factorizer=(None, None, None)), dict(structured_kkt=object())):
-        with pytest.raises(NotImplementedError):
-            port_ipm.build_solver(obj, con, 2, 1, **kw)
-    # takes_aux is ported (tests/test_torch_solve.py drives it)
-    assert callable(port_ipm.build_solver(obj, con, 2, 1, takes_aux=True))
+# a block spec for HS071's four variables: its K is dense, so one interior
+# block {0, 1, 2} (with a padded fourth slot) and the border {3}
+HS071_SPEC = dict(interior_idx=np.array([[0, 1, 2, 0]], np.int32),
+                  interior_mask=np.array([[True, True, True, False]]),
+                  border_idx=np.array([3], np.int32), n=4)
+
+
+def _ref_hooks(hook):
+    from lpopc_tpu.core.block_kkt import BlockKKTSpec, make_block_factorizer
+    from lpopc_tpu.core.kkt_blocks import BoundKKT
+
+    fact = make_block_factorizer(BlockKKTSpec(**HS071_SPEC))
+    if hook == "kkt_factorizer":
+        return dict(kkt_factorizer=fact)
+    obj = lambda z: z[0] * z[3] * (z[0] + z[1] + z[2]) + z[2]
+    con = lambda z: jnp.array([z[0] * z[1] * z[2] * z[3], jnp.sum(z ** 2)])
+    return dict(structured_kkt=BoundKKT(
+        jac_blocks=jax.jacfwd(con),
+        hess_blocks=jax.hessian(lambda z, lam: obj(z) + jnp.dot(lam, con(z))),
+        jv=lambda J, v: J @ v, jtv=lambda J, u: J.T @ u, hv=lambda H, v: H @ v,
+        factorize=lambda J, H, d, w: fact[0](H + jnp.diag(w) + (J.T * d) @ J),
+        fsolve=fact[1], factor_ok=fact[2]))
+
+
+def _port_hooks(hook, calls):
+    from torch.func import hessian, jacfwd, vmap
+
+    from lpopc_tpu_torch.core.block_kkt import BlockKKTSpec, make_block_factorizer
+    from lpopc_tpu_torch.core.kkt_blocks import BoundKKT
+
+    factorize, fsolve, factor_ok = make_block_factorizer(BlockKKTSpec(**HS071_SPEC))
+
+    def counted(K):
+        calls.append(K.shape)
+        return factorize(K)
+
+    if hook == "kkt_factorizer":
+        return dict(kkt_factorizer=(counted, fsolve, factor_ok))
+    obj = lambda z: z[0] * z[3] * (z[0] + z[1] + z[2]) + z[2]
+    con = lambda z: torch.stack([z[0] * z[1] * z[2] * z[3], (z ** 2).sum()])
+    mv = lambda M, v: torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
+    return dict(structured_kkt=BoundKKT(
+        jac_blocks=vmap(jacfwd(con)),
+        hess_blocks=vmap(hessian(lambda z, lam: obj(z) + torch.dot(lam, con(z)))),
+        jv=mv, jtv=lambda J, u: mv(J.transpose(1, 2), u), hv=mv,
+        factorize=lambda J, H, d, w: counted(
+            H + torch.diag_embed(w) + (J.transpose(1, 2) * d[:, None, :]) @ J),
+        fsolve=fsolve, factor_ok=factor_ok))
+
+
+# (hook, start) -> (the JAX package's count, the port's) where rounding
+# decides the count (ROADMAP Queue 3, entry 3): under structured_kkt the
+# JAX package takes 23–37 iterations from the third start scaled by
+# 1 + 1e-15·U(-1, 1), and 21 from the start alone (`scripts/jax_block_pins.py
+# hs071_jitter`), so the known difference is pinned on both sides.
+ROUNDING_DECIDED = {("structured_kkt", 2): (24, 22)}
+
+
+@pytest.mark.parametrize("hook", ["kkt_factorizer", "structured_kkt"])
+def test_block_hooks_take_the_block_path(hook):
+    """``kkt_factorizer`` (a block factorizer of the equilibrated K) and
+    ``structured_kkt`` (matrix-free closures, here around HS071's dense
+    J and H) are taken in place of the dense route, with lane_kkt=True too:
+    the solves factor through the block factorization and take the JAX
+    package's iterations under the same hooks (``vmap``), exactly, apart
+    from the pinned pair in ``ROUNDING_DECIDED``."""
+    ref_solve = ref_ipm.build_solver(
+        lambda z: z[0] * z[3] * (z[0] + z[1] + z[2]) + z[2],
+        lambda z: jnp.array([z[0] * z[1] * z[2] * z[3], jnp.sum(z ** 2)]),
+        4, 2, ref_ipm.IPMOptions(tol=1e-8, max_iter=60), **_ref_hooks(hook))
+    inputs = (STARTS["ragged"], *BOUNDS)
+    ref = jax.jit(jax.vmap(ref_solve))(*(jnp.asarray(a) for a in inputs))
+    calls = []
+    solve = port_ipm.build_solver(
+        lambda z: z[0] * z[3] * (z[0] + z[1] + z[2]) + z[2],
+        lambda z: torch.stack([z[0] * z[1] * z[2] * z[3], (z ** 2).sum()]),
+        4, 2, port_ipm.IPMOptions(tol=1e-8, max_iter=60, lane_kkt=True),
+        **_port_hooks(hook, calls))
+    res = solve(torch.as_tensor(STARTS["ragged"]), *(torch.as_tensor(a) for a in BOUNDS))
+    assert calls and all(shape == (B, 4, 4) for shape in calls)
+    assert res.status.tolist() == np.asarray(ref.status).tolist() == [port_ipm.SOLVED] * B
+    for i, (want, got) in enumerate(zip(np.asarray(ref.iterations).tolist(),
+                                        res.iterations.tolist())):
+        assert (want, got) == ROUNDING_DECIDED.get((hook, i), (want, want)), i
+    np.testing.assert_allclose(res.z.numpy(), np.asarray(ref.z), rtol=0, atol=Z_TOL)
+    # takes_aux: structured_kkt is then a factory aux -> BoundKKT
+    if hook == "structured_kkt":
+        hooks = _port_hooks(hook, calls)
+        aux_solve = port_ipm.build_solver(
+            lambda z, aux: z[0] * z[3] * (z[0] + z[1] + z[2]) + z[2],
+            lambda z, aux: torch.stack([z[0] * z[1] * z[2] * z[3], (z ** 2).sum()]),
+            4, 2, port_ipm.IPMOptions(tol=1e-8, max_iter=60), takes_aux=True,
+            structured_kkt=lambda aux: hooks["structured_kkt"])
+        res_aux = aux_solve(torch.as_tensor(STARTS["ragged"]),
+                            *(torch.as_tensor(a) for a in BOUNDS), aux={})
+        assert res_aux.iterations.tolist() == res.iterations.tolist()
 
 
 def test_option_defaults_are_the_reference_defaults():
