@@ -46,6 +46,20 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 10. ``block_factor`` times the block factorization at ph's grid 6 shapes and
                     at sweep_block's, against ``cholesky_ex`` +
                     ``cholesky_solve`` on the same blocks;
+11. ``sweep_launch`` the JAX package's ``bench.py::bench_launch(batch=32)``:
+                    32 payload instances of the 4-phase GTO ascent (n = 546),
+                    through both kernels' global variants at B = 32;
+12. ``sweep_boostbrake`` ``bench.py::bench_boostbrake(batch=256)``: 256
+                    instances of the 2-phase boost-brake problem (n = 58),
+                    through the shared variants; both sweeps hold every
+                    instance's status, iterations and objective to the JAX
+                    package's (within its own spread where rounding decides);
+13. ``solve_multiphase`` single-problem solves on the kernel route: the
+                    4-phase launch (mesh fixed), the boost-brake hp solve
+                    (per-phase refinement) and the tabulated climb
+                    (``Spline1D`` and ``Spline2D`` in the dynamics), each
+                    against the JAX package's grids, meshes, iterations and
+                    objective and against its golden;
 
 and prints one JSON line per phase, then a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -76,7 +90,7 @@ from lpopc_tpu_torch.core.kkt_blocks import bind_structured_kkt, make_structured
 from lpopc_tpu_torch.core.solve import SolveOptions
 from lpopc_tpu_torch.core.structured import make_structured_jacobian
 from lpopc_tpu_torch.core.transcribe import const_mesh, transcribe
-from lpopc_tpu_torch.models import brachistochrone, hypersensitive
+from lpopc_tpu_torch.models import boostbrake, brachistochrone, climb, hypersensitive, launch
 from lpopc_tpu_torch.ops import batched_linalg as bl
 from lpopc_tpu_torch.parallel.batch import make_batch_solver
 from lpopc_tpu_torch.utils import build
@@ -335,6 +349,210 @@ ROUNDING_SPREAD_BLOCK = {
     "dense": {2: (20, 31), 41: (15, 19), 45: (16, 25), 51: (15, 17)},
 }
 
+# sweep_launch: bench.py::bench_launch(batch=32) as written there —
+# launch.make_problem() at its default mesh (degrees (5, 5, 5, 7), segments
+# (2, 2, 2, 3): n = 546, m = 441), IPMOptions(tol=1e-8, max_iter=60), phase
+# 1's pinned initial mass shifted by 0.01·U(-1, 1)·var_scale, seed 0. The
+# JAX package's per-instance results (scripts/jax_multiphase_pins.py
+# launch_sweep; CPU, x64, lane_kkt=False): status (1 solved, 2 iteration
+# limit, 3 failed), iterations, objective.
+BATCH_LAUNCH = 32
+LAUNCH_SWEEP_REFERENCE = {
+    "n": 546, "m": 441,
+    "status": [
+        1, 1, 1, 1, 2, 2, 1, 3, 1, 2, 2, 1, 2, 1, 3, 1, 2, 1, 1, 1, 1, 1, 2, 1, 1, 1, 2, 2,
+        2, 1, 2, 1,
+    ],
+    "iterations": [
+        13, 11, 15, 14, 60, 60, 11, 49, 23, 60, 60, 14, 60, 19, 50, 15, 60, 17, 10, 12, 18,
+        20, 60, 13, 17, 11, 60, 60, 60, 11, 60, 12,
+    ],
+    "objective": [
+        -0.02532618999281206, -0.024244604020024898, -0.023341386326812544,
+        -0.023235065341629044, -0.025607305914452615, -0.025646147013516873,
+        -0.025254929933664114, -0.02551249720119725, -0.0250962037140438,
+        -0.025645995189136815, -0.025609234343004078, -0.02317427749590362,
+        -0.025633133725069056, -0.023309449912124195, -0.025512742234251796,
+        -0.023893446744477086, -0.02563544798869648, -0.025090499629182958,
+        -0.024350117581863708, -0.024751998577879936, -0.023286583108568206,
+        -0.02368967114489746, -0.025401604966783578, -0.02534946411233322,
+        -0.02527583365308734, -0.02463009868958195, -0.10538468043448417,
+        -0.025637060537679137, -0.025433701024952557, -0.025356823629555054,
+        -0.025439619382171846, -0.02464678931255311,
+    ],
+}
+
+# sweep_boostbrake: bench.py::bench_boostbrake(batch=256) as written there —
+# boostbrake.make_problem(degrees=(8,)) (n = 58, m = 38), IPMOptions(tol=1e-8,
+# max_iter=80), phase 2's pinned terminal distance lowered by 0.1·U(0, 1)·zl,
+# seed 0 (scripts/jax_multiphase_pins.py boostbrake_sweep).
+BATCH_BOOSTBRAKE = 256
+BOOSTBRAKE_SWEEP_REFERENCE = {
+    "n": 58, "m": 38,
+    "status": [
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1,
+    ],
+    "iterations": [
+        21, 14, 19, 18, 19, 19, 22, 35, 22, 24, 38, 19, 22, 18, 24, 14, 20, 19, 16, 27, 18,
+        17, 20, 15, 16, 22, 18, 18, 14, 20, 20, 24, 17, 20, 23, 17, 25, 20, 23, 18, 22, 25,
+        19, 20, 36, 21, 14, 35, 14, 21, 16, 14, 26, 17, 19, 18, 27, 20, 14, 19, 16, 14, 15,
+        19, 15, 28, 14, 24, 25, 17, 18, 42, 23, 19, 16, 19, 30, 25, 19, 27, 23, 22, 20, 25,
+        26, 17, 17, 24, 17, 21, 23, 17, 23, 25, 21, 17, 18, 17, 28, 17, 35, 14, 24, 20, 17,
+        22, 17, 24, 19, 14, 25, 18, 32, 18, 25, 15, 32, 26, 32, 18, 20, 29, 17, 18, 14, 14,
+        26, 14, 17, 27, 19, 24, 26, 23, 27, 20, 29, 17, 21, 25, 20, 17, 19, 18, 16, 18, 20,
+        17, 20, 17, 20, 25, 14, 15, 22, 27, 26, 22, 20, 17, 28, 16, 27, 19, 27, 17, 14, 20,
+        23, 23, 20, 21, 16, 16, 19, 21, 17, 17, 25, 18, 33, 14, 15, 19, 23, 15, 25, 18, 17,
+        21, 14, 23, 23, 15, 18, 23, 20, 24, 28, 26, 16, 14, 16, 14, 17, 19, 20, 26, 29, 39,
+        14, 22, 28, 18, 14, 24, 22, 27, 25, 20, 26, 22, 22, 25, 29, 21, 20, 15, 18, 17, 17,
+        29, 18, 18, 16, 17, 14, 18, 26, 19, 21, 17, 24, 25, 25, 25, 20, 37, 14, 16, 21, 36,
+        18, 23, 27, 26,
+    ],
+    "objective": [
+        4.352053163795501, 4.419768661974976, 4.461607829807911, 4.477033338728878,
+        4.318964548792372, 4.300549775917438, 4.358131120578318, 4.334734353315309,
+        4.369417130175938, 4.295879597505543, 4.318476873357429, 4.479513529365756,
+        4.310621496561403, 4.46293542960316, 4.335129994314372, 4.437300399163084,
+        4.309954260144014, 4.3698184330822, 4.414731394163489, 4.391761927067745,
+        4.463881338230662, 4.446595758906949, 4.345764927044329, 4.3501440477240365,
+        4.356501308506633, 4.398932926275883, 4.284030182569034, 4.287584411753146,
+        4.342973903822067, 4.349533449149445, 4.342430120501688, 4.397969993182692,
+        4.4446416422344095, 4.3362373059725146, 4.372803942294067, 4.41238461857191,
+        4.380115995103794, 4.304541091861317, 4.296075400601446, 4.4036810522855445,
+        4.364236772264346, 4.410258859693674, 4.360427438812519, 4.407323524710517,
+        4.397474512431172, 4.304391870008007, 4.427951967843357, 4.35504718029776,
+        4.453861412195313, 4.315305128629294, 4.323900573344455, 4.425730944730138,
+        4.307007070220203, 4.458443727239502, 4.407651967631409, 4.441895654518667,
+        4.387091884381906, 4.32258736791335, 4.4273183770325035, 4.459621452598823,
+        4.395097885619479, 4.4331550863279645, 4.452646956836916, 4.363025335116943,
+        4.414493906445123, 4.345508631068975, 4.432973161933975, 4.294966077796164,
+        4.402339902869285, 4.449987958078451, 4.353518239103575, 4.297812513221349,
+        4.388928040751109, 4.292162895796235, 4.377516554899717, 4.391294136292785,
+        4.355601499342556, 4.2844340209752945, 4.293238683820604, 4.384877937135651,
+        4.329429525592564, 4.377973943814747, 4.372070618757293, 4.324147907136933,
+        4.393663426165558, 4.333798010581745, 4.338177738934412, 4.2964528603248535,
+        4.448284518932786, 4.334824730522529, 4.297334726190781, 4.289620662471998,
+        4.466325291432158, 4.309440714577773, 4.2875157512779785, 4.291663675443044,
+        4.442169854711628, 4.289150436847362, 4.304456149485225, 4.3172456114997955,
+        4.381620416823785, 4.427003639331161, 4.321113685888602, 4.298075230824475,
+        4.420857937037719, 4.37028699669016, 4.388066441408914, 4.296651175539183,
+        4.4616910138507535, 4.3342631914699945, 4.3562650214003416, 4.463873131575773,
+        4.3370883297011895, 4.477129768351897, 4.329387743480653, 4.375136466766775,
+        4.297015113796476, 4.4570913329292186, 4.3136653921127, 4.456981972412669,
+        4.406151856503371, 4.3903606670659325, 4.289976161524179, 4.366388443416463,
+        4.422181781688476, 4.4253113040277885, 4.304800904488123, 4.428186154003144,
+        4.446546723320557, 4.416386241449073, 4.361523924952266, 4.367475362375567,
+        4.319636363865636, 4.366289966599148, 4.416369732600805, 4.3935634098431695,
+        4.318048763643675, 4.354003419176015, 4.29130774852572, 4.401552295542929,
+        4.368174324173568, 4.3604973711900294, 4.312346221777118, 4.442765131964256,
+        4.394737808516079, 4.3010811098858195, 4.46123154788375, 4.317182818288242,
+        4.393105789616079, 4.315841883496233, 4.478215866135879, 4.402351641410345,
+        4.454831742347902, 4.349130895750505, 4.419028020246928, 4.339769325908528,
+        4.294217991242593, 4.445716003997379, 4.309651350164508, 4.458282483553845,
+        4.399466611080653, 4.390457279664683, 4.379558940804916, 4.288419009999315,
+        4.326475015290752, 4.412637634128224, 4.419759534189116, 4.30996538033684,
+        4.306519010276703, 4.375516329938201, 4.406154465930832, 4.284468252421135,
+        4.411342423655868, 4.436021243478715, 4.306748250036173, 4.319566932587485,
+        4.346276343433141, 4.291434309659706, 4.297659828993374, 4.331211971092819,
+        4.30999722766021, 4.424315575344006, 4.443529654228039, 4.345870128275288,
+        4.33752597800443, 4.438859027887939, 4.396750994115674, 4.301024724361471,
+        4.366118275052835, 4.362971854309449, 4.433950469114289, 4.3726801994640025,
+        4.373159545024753, 4.452974590104861, 4.286946185911576, 4.3642617134840185,
+        4.467813904788263, 4.3266220270159845, 4.287648031222951, 4.360826961078818,
+        4.410658938158401, 4.435151690435259, 4.345409179478642, 4.433773089120704,
+        4.363092314141388, 4.358525012003939, 4.290670014333583, 4.455978140456532,
+        4.3775023108050926, 4.331992076069916, 4.437015655443294, 4.398126962304593,
+        4.4576649796985155, 4.335413031649814, 4.453185082522631, 4.396836534594626,
+        4.307568404208863, 4.382616095318165, 4.300148696029023, 4.327889114602286,
+        4.299635228404857, 4.445610134864138, 4.455744465156428, 4.456327300813619,
+        4.308453003417421, 4.352592697768551, 4.378131315419799, 4.43949464126718,
+        4.345183463770966, 4.410963259729849, 4.338227053900387, 4.385244651135014,
+        4.376115440205861, 4.323416734626147, 4.452287726399575, 4.362893297891659,
+        4.433387030454296, 4.319933398232195, 4.379559589681545, 4.2856568194553475,
+        4.435979371585668, 4.290556376556645, 4.321721287774123, 4.381385337022895,
+        4.3193406805713614, 4.3584114904494164, 4.3486626785699825, 4.299945596596007,
+        4.457237502595257, 4.314862056064756, 4.399274911378525, 4.409586444352151,
+        4.285065317714533, 4.325013606764258, 4.380595560114498, 4.3921964737126515,
+    ],
+}
+
+# Where rounding decides the count (ROADMAP Queue 3): the instances whose
+# status or count the JAX package itself changes when their starting point
+# is scaled by 1 + 1e-15·U(-1, 1) (scripts/jax_multiphase_pins.py
+# launch_jitter: each instance 8 times in one batch, copy 0 as it is;
+# boostbrake_jitter: 32 times, and boostbrake_jitter_focus: each instance
+# whose count moves there 256 times), with the least and the most
+# iterations it takes there and in the sweep above, the statuses it ends
+# in, and the least and the most objective of its solved copies (None if
+# none solved). Every other instance must take the JAX package's status and
+# count exactly; objectives are held where both packages solved.
+ROUNDING_SPREAD_MULTIPHASE = {
+    "sweep_launch": {
+        8: (23, 24, (1,), (-0.02509620371406947, -0.025096203713793903)),
+        13: (18, 19, (1,), (-0.023309449913313136, -0.023309449912124195)),
+        14: (47, 56, (3,), None),
+    },
+    "sweep_boostbrake": {
+        4: (18, 21, (1,), (4.318964548724405, 4.318964563238453)),
+        7: (34, 45, (1,), (4.3347343522269774, 4.334734353315683)),
+        10: (31, 44, (1,), (4.318476872655734, 4.318476878071719)),
+        71: (37, 72, (1,), (4.297385961315723, 4.297812527983784)),
+        72: (22, 23, (1,), (4.388928040751106, 4.38892805501115)),
+        89: (20, 37, (1,), (4.334824730129038, 4.334824733984487)),
+        90: (22, 24, (1,), (4.297334726190777, 4.297334730696626)),
+        112: (24, 39, (1,), (4.336662918644391, 4.337088343156954)),
+        178: (23, 42, (1,), (4.297659828612901, 4.297659839372773)),
+        180: (31, 53, (1,), (4.309997214374465, 4.310423420492781)),
+        188: (17, 18, (1,), (4.366118243337115, 4.3661182754850865)),
+        223: (24, 25, (1,), (4.456327300813617, 4.456327319118359)),
+        231: (28, 36, (1,), (4.38482070937679, 4.385244663576282)),
+        242: (24, 27, (1,), (4.321721287445954, 4.321721301898434)),
+        245: (21, 38, (1,), (4.358411490022792, 4.358836246900434)),
+    },
+}
+MULTIPHASE_OBJECTIVE_RTOL = 1e-7
+
+# solve_multiphase: the JAX package's single-problem solves (CPU, x64,
+# lane_kkt=False; scripts/jax_multiphase_pins.py launch_solve,
+# boostbrake_hp, climb_tab): grids, per grid (n, m, iterations), each grid's
+# per-phase mesh (degrees, fractions) and the objective. The launch's one
+# grid is bucketed to degree 8 (n = 836), past BLOCK_THRESHOLD.
+BB_FRACTIONS = (-1.0, -0.8, -0.6, -0.39999999999999997, -0.19999999999999996,
+                0.19999999999999996, 0.4, 0.6000000000000001, 1.0)
+MULTIPHASE_SOLVE_REFERENCE = {
+    "launch": {
+        "grids": 1, "objective": -0.02497798103570176, "per_grid": [(836, 673, 13)],
+        "mesh_history": [[
+            [[8, 8], [-1.0, 0.0, 1.0]], [[8, 8], [-1.0, 0.0, 1.0]], [[8, 8], [-1.0, 0.0, 1.0]],
+            [[8, 8, 8, 8], [-1.0, -0.33333333333333337, 0.33333333333333326,
+                            0.6666666666666666, 1.0]]]]},
+    "boostbrake": {
+        "grids": 5, "objective": 4.46860665426804,
+        "per_grid": [(58, 38, 18), (82, 54, 21), (130, 86, 5), (226, 150, 8), (418, 278, 9)],
+        "mesh_history": [
+            [[[8], [-1.0, 1.0]], [[8], [-1.0, 1.0]]],
+            [[[16], [-1.0, 1.0]], [[8], [-1.0, 1.0]]],
+            [[[4] * 8, BB_FRACTIONS], [[8], [-1.0, 1.0]]],
+            [[[8] * 8, BB_FRACTIONS], [[8], [-1.0, 1.0]]],
+            [[[16] * 8, BB_FRACTIONS], [[8], [-1.0, 1.0]]],
+        ]},
+    "climb": {
+        "grids": 1, "objective": 67.7503385191713, "per_grid": [(133, 97, 13)],
+        "mesh_history": [[[[8, 8, 8, 8], [-1.0, -0.5, 0.0, 0.5, 1.0]]]]},
+}
+MULTIPHASE_SOLVE_RTOL = 1e-8
+LAUNCH_GOLDEN_KG = 7529.71                       # tests/test_examples.py
+BB_GOLDEN_J, BB_GOLDEN_Q = 4.4686059, 2.6933582834  # tests/test_boostbrake.py's oracle
+CLIMB_GOLDEN = 67.7506                           # tests/test_climb.py
+
 # Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s in
 # float64 on the tensor cores (K1's trailing update runs there; outside them
 # float64 has half that) and 67 TFLOP/s in float32 outside them (TF32 is
@@ -379,11 +597,20 @@ KERNEL_SHAPES = {
 }
 # every (1, n) the hp solve launches, with the variant its n selects
 HP_N = sorted(set(HP_REFERENCE["ph"]["n"]) | set(HP_REFERENCE["hp-liu"]["n"]))
+# every (1, n) the multi-phase solves launch (grids below the block path's
+# threshold), and the multi-phase sweeps' shapes
+SOLVE_N = sorted({g[0] for ref in MULTIPHASE_SOLVE_REFERENCE.values() for g in ref["per_grid"]
+                  if g[0] < BLOCK_THRESHOLD})
 KERNEL_SHAPES.update({(1, n, F64): (bl.variant("lane_cholesky", n, 8),
-                                    bl.variant("lane_cho_solve", n, 8)) for n in HP_N})
+                                    bl.variant("lane_cho_solve", n, 8))
+                      for n in sorted(set(HP_N) | set(SOLVE_N))})
+KERNEL_SHAPES.update({(BATCH_LAUNCH, LAUNCH_SWEEP_REFERENCE["n"], F64): ("global", "global"),
+                      (BATCH_BOOSTBRAKE, BOOSTBRAKE_SWEEP_REFERENCE["n"], F64):
+                          ("shared", "shared")})
 MAIN_SHAPE = (512, 53, F64)                   # the sweep's
 TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64), (1, 515, F64), (1, 2051, F64),
-                (1, 4099, F64), (512, 300, F64))
+                (1, 4099, F64), (512, 300, F64), (BATCH_LAUNCH, 546, F64),
+                (BATCH_BOOSTBRAKE, 58, F64))
 REL_TOL = {F64: 1e-10, F32: 5e-3}
 # K2's global variant sums each tile's terms in a fixed order, whatever the
 # order in which other blocks publish: REPEATS calls at each of these shapes
@@ -664,6 +891,32 @@ def reset_counters(bs):
     bs.solver.outer_iterations = 0
 
 
+def counted_runs(bs, args):
+    """One warm-up run of a batch solver, then three timed runs; every count
+    is zeroed just before the third, the counted run. Returns its result,
+    the three walls, the warm-up's wall, its launches (total and per
+    variant), host syncs and outer iterations."""
+    def run_once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bs.run(*args)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    _, warm_s = run_once()                            # warm-up (first-use costs)
+    walls = []
+    for rep in range(3):
+        if rep == 2:
+            reset_counters(bs)
+        res, wall = run_once()
+        walls.append(wall)
+    launches = {k: getattr(bl, k).launches for k in ("lane_cholesky", "lane_cho_solve")}
+    by_variant = {k: {v: getattr(getattr(bl, k), f"launches_{v}") for v in ("shared", "global")}
+                  for k in launches}
+    return (res, walls, warm_s, launches, by_variant, bs.solver.host_syncs,
+            bs.solver.outer_iterations)
+
+
 def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
                 reference=REFERENCE_OBJECTIVES, expect=None, block_iterations=None):
     """One sweep, its counted run and its checks: on the lane route both
@@ -681,26 +934,7 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
     options = SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=lane_kkt))
     bs = make_batch_solver(problem, options)          # device=None: the GPU
     args = sweep_inputs(bs, batch)
-
-    def run_once():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = bs.run(*args)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
-
-    _, warm_s = run_once()                            # warm-up (first-use costs)
-    walls = []
-    for rep in range(3):
-        if rep == 2:
-            # the counted run: every count is zeroed just before it
-            reset_counters(bs)
-        res, wall = run_once()
-        walls.append(wall)
-    launches = {k: getattr(bl, k).launches for k in ("lane_cholesky", "lane_cho_solve")}
-    by_variant = {k: {v: getattr(getattr(bl, k), f"launches_{v}") for v in ("shared", "global")}
-                  for k in launches}
-    host_syncs, outer = bs.solver.host_syncs, bs.solver.outer_iterations
+    res, walls, warm_s, launches, by_variant, host_syncs, outer = counted_runs(bs, args)
 
     status = res.status.cpu().numpy()
     objective = res.objective.cpu().numpy()
@@ -784,6 +1018,199 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
                  for assembly, want in zip(("direct", "dense"), block_iterations)},
              "rounding_decides": rounding_decides}))
     return launches, by_variant
+
+
+def launch_inputs(bs, batch: int):
+    """bench.py::bench_launch's perturbation: phase 1's pinned initial mass
+    shifted by 0.01·U(-1, 1)·var_scale per instance, seed 0."""
+    rng = np.random.default_rng(SEED)
+    z0, zl, zu, cl, cu = bs.nominal_inputs(batch)
+    mrow = bs.nlp.layout.phases[0].var_offset + 6
+    d = 0.01 * rng.uniform(-1, 1, batch) * bs.scaled.var_scale[mrow]
+    zl[:, mrow] += d
+    zu[:, mrow] += d
+    return z0, zl, zu, cl, cu
+
+
+def boostbrake_inputs(bs, batch: int):
+    """bench.py::bench_boostbrake's perturbation: phase 2's pinned terminal
+    distance lowered by 0.1·U(0, 1)·zl per instance, seed 0."""
+    rng = np.random.default_rng(SEED)
+    z0, zl, zu, cl, cu = bs.nominal_inputs(batch)
+    pl = bs.nlp.layout.phases[1]
+    srow = pl.var_offset + (pl.npts - 1) * pl.nx
+    d = -0.1 * rng.uniform(0.0, 1.0, batch) * bs.scaled.zl[srow]
+    zl[:, srow] += d
+    zu[:, srow] += d
+    return z0, zl, zu, cl, cu
+
+
+MULTIPHASE_SWEEPS = {
+    # name -> (problem, IPM options, perturbation, batch, JAX reference, variant)
+    "sweep_launch": (lambda: launch.make_problem(), dict(tol=1e-8, max_iter=60),
+                     launch_inputs, BATCH_LAUNCH, LAUNCH_SWEEP_REFERENCE, "global"),
+    "sweep_boostbrake": (lambda: boostbrake.make_problem(degrees=(8,)),
+                         dict(tol=1e-8, max_iter=80), boostbrake_inputs, BATCH_BOOSTBRAKE,
+                         BOOSTBRAKE_SWEEP_REFERENCE, "shared"),
+}
+
+
+def phase_multiphase_sweep(name: str):
+    """A bench.py multi-phase sweep as written there, through the kernels
+    (lane_kkt=True): every instance's status and iteration count equal to
+    the JAX package's (within its own spread where rounding decides,
+    ROUNDING_SPREAD_MULTIPHASE), objectives within MULTIPHASE_OBJECTIVE_RTOL,
+    and both kernels launched in the one variant that n selects."""
+    make, ipm, inputs, batch, ref, want = MULTIPHASE_SWEEPS[name]
+    bs = make_batch_solver(make(), SolveOptions(ipm=IPMOptions(**ipm, lane_kkt=True)))
+    if (bs.n, bs.m) != (ref["n"], ref["m"]):
+        raise AssertionError(f"{name}: (n, m) = {(bs.n, bs.m)}, JAX's {(ref['n'], ref['m'])}")
+    args = tuple(torch.as_tensor(a, device=DEVICE, dtype=torch.float64)
+                 for a in inputs(bs, batch))
+    res, walls, warm_s, launches, by_variant, host_syncs, outer = counted_runs(bs, args)
+    status = res.status.cpu().numpy()
+    iterations = res.iterations.cpu().tolist()
+    objective = res.objective.cpu().numpy()
+    if res.z.shape != (batch, bs.n) or not np.all(np.isfinite(objective)):
+        raise AssertionError(f"{name}: result has a wrong shape or non-finite objectives")
+    spread = ROUNDING_SPREAD_MULTIPHASE[name]
+
+    tol = MULTIPHASE_OBJECTIVE_RTOL
+
+    def within(i):
+        if i in spread:
+            lo, hi, statuses, _ = spread[i]
+            return lo <= iterations[i] <= hi and int(status[i]) in statuses
+        return iterations[i] == ref["iterations"][i] and int(status[i]) == ref["status"][i]
+
+    off = [(i, int(status[i]), iterations[i], ref["status"][i], ref["iterations"][i])
+           for i in range(batch) if not within(i)]
+    if off:
+        raise AssertionError(f"{name}: (instance, status, iterations, JAX's status, "
+                             f"JAX's iterations) differ: {off}")
+    # objectives where both solved (an unsolved iterate is not an answer):
+    # JAX's, or within the objectives JAX's solved copies reach where
+    # rounding decides
+    want_obj = np.asarray(ref["objective"])
+    rel = np.abs(objective - want_obj) / np.abs(want_obj)
+    both = (status == SOLVED) & (np.asarray(ref["status"]) == SOLVED)
+    for i in spread:
+        lo, hi = spread[i][3] or (want_obj[i], want_obj[i])
+        rel[i] = 0.0 if lo - tol * abs(lo) <= objective[i] <= hi + tol * abs(hi) else np.inf
+    obj_rel = float(np.max(rel[both]))
+    if not obj_rel <= tol:
+        bad = [(int(i), float(objective[i]), float(want_obj[i]))
+               for i in np.nonzero(both & ~(rel <= tol))[0]]
+        raise AssertionError(f"{name}: (instance, objective, JAX's) differ: {bad}")
+    for k in launches:
+        if not (by_variant[k][want] > 0 and by_variant[k][want] == launches[k]):
+            raise AssertionError(f"{name}: {k} did not run (only) its {want} variant: "
+                                 f"{by_variant[k]}")
+    wall = statistics.median(walls)
+    solved_frac = float(np.mean(status == SOLVED))
+    emit(name, lane_kkt=True, batch=batch, n=bs.n, m=bs.m, solved_frac=solved_frac,
+         jax_solved_frac=float(np.mean(np.asarray(ref["status"]) == SOLVED)),
+         wall_s=wall, wall_s_runs=walls, warmup_s=warm_s,
+         solves_per_s=batch * solved_frac / wall,
+         iters_p50=float(np.median(iterations)), iters_max=max(iterations),
+         outer_iterations=outer, launches=launches, launches_by_variant=by_variant,
+         host_syncs=host_syncs, host_syncs_per_iteration=host_syncs / max(outer, 1),
+         objective_max_rel_err_vs_jax=obj_rel,
+         iterations_equal_jax=sum(int(a == b) for a, b in zip(iterations, ref["iterations"])),
+         objectives_compared=int(both.sum()),
+         rounding_decides={str(i): {"port": [int(status[i]), iterations[i]],
+                                    "jax": [ref["status"][i], ref["iterations"][i]],
+                                    "jax_spread": spread[i]} for i in spread})
+    return by_variant
+
+
+def lane_options(options: SolveOptions) -> SolveOptions:
+    """``options`` with the IPM it resolves to on the kernel route."""
+    return replace(options, ipm=replace(options.ipm_options(), lane_kkt=True))
+
+
+MULTIPHASE_SOLVES = {
+    # name -> (problem, options as in the JAX package's tests)
+    "launch": (lambda: launch.make_problem(),
+               SolveOptions(mesh_method="none", max_iterations=400)),
+    "boostbrake": (lambda: boostbrake.make_problem(),
+                   SolveOptions(ipm=IPMOptions(tol=1e-9, max_iter=300), max_grid_num=6)),
+    "climb": (lambda: climb.make_problem(tabulated=True), SolveOptions(mesh_method="none")),
+}
+
+
+def golden_checks(name: str, sol) -> dict:
+    """The goldens of tests/test_examples.py (launch), tests/test_boostbrake.py
+    and tests/test_climb.py."""
+    if name == "launch":
+        mass, tf = launch.final_mass_kg(sol), float(sol.phases[3].tf * launch.TU)
+        drops = [float(sol.phases[i].x[-1, 6] - sol.phases[i + 1].x[0, 6]) for i in range(3)]
+        if not (abs(mass - LAUNCH_GOLDEN_KG) < 1.0 and 900.0 < tf < 950.0
+                and all(d > -1e-9 for d in drops)):
+            raise AssertionError(f"launch: final mass {mass} kg, tf {tf} s, drops {drops}")
+        return {"final_mass_kg": mass, "tf_s": tf, "mass_drops": drops}
+    if name == "boostbrake":
+        q = [float(p.q[0]) for p in sol.phases]
+        if not (abs(sol.objective - BB_GOLDEN_J) < 1e-5 and abs(q[0] - BB_GOLDEN_Q) < 1e-4
+                and abs(q[0] - q[1]) < 1e-4):
+            raise AssertionError(f"boostbrake: J {sol.objective!r}, q {q}")
+        return {"golden_abs_err": abs(sol.objective - BB_GOLDEN_J), "q": q}
+    if not abs(sol.objective - CLIMB_GOLDEN) < 5e-3:
+        raise AssertionError(f"climb: objective {sol.objective!r} against {CLIMB_GOLDEN}")
+    return {"golden_abs_err": abs(sol.objective - CLIMB_GOLDEN)}
+
+
+def phase_solve_multiphase():
+    """One single-problem solve of each of MULTIPHASE_SOLVES on the kernel
+    route (lane_kkt=True under the default block_kkt="auto": a grid at
+    n >= BLOCK_THRESHOLD takes the block path, as the launch's one grid,
+    bucketed to n = 836, does), each with the counts zeroed just before it:
+    the JAX package's grids, meshes, per-grid (n, m, iterations) and
+    objective, the goldens, and each kernel launched in exactly the variants
+    its grids' n select."""
+    out, by_case = {}, {}
+    for name, (make, options) in MULTIPHASE_SOLVES.items():
+        ref = MULTIPHASE_SOLVE_REFERENCE[name]
+        problem = make()
+        bl.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve_mod.solve(problem, lane_options(options))     # device=None: the GPU
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_variant = {k: {"shared": w.launches_shared, "global": w.launches_global}
+                      for k, w in WRAPPERS.items()}
+        if sol.status != SOLVED or sol.grids != ref["grids"]:
+            raise AssertionError(f"solve_multiphase[{name}]: status {sol.status}, "
+                                 f"{sol.grids} grids; JAX's {ref['grids']}")
+        per_grid = [(g["n"], g["m"], g["iterations"]) for g in sol.grid_stats]
+        if per_grid != [tuple(g) for g in ref["per_grid"]]:
+            raise AssertionError(f"solve_multiphase[{name}]: per grid (n, m, iterations) "
+                                 f"{per_grid}, JAX's {ref['per_grid']}")
+        for g, (grid, want) in enumerate(zip(sol.mesh_history, ref["mesh_history"]), 1):
+            for (deg, fr), (rdeg, rfr) in zip(grid, want):
+                if tuple(deg) != tuple(rdeg) or len(fr) != len(rfr) or max(
+                        abs(a - b) for a, b in zip(fr, rfr)) > HP_FRACTION_TOL:
+                    raise AssertionError(f"solve_multiphase[{name}]: grid {g} mesh "
+                                         f"{deg}, {fr} differs from JAX's {rdeg}, {rfr}")
+        obj_rel = abs(sol.objective - ref["objective"]) / abs(ref["objective"])
+        if not obj_rel <= MULTIPHASE_SOLVE_RTOL:
+            raise AssertionError(f"solve_multiphase[{name}]: objective {sol.objective!r}, "
+                                 f"{obj_rel} relative to JAX's")
+        for k, by in by_variant.items():
+            # grids at n >= BLOCK_THRESHOLD take the block path: no launch
+            want = {bl.variant(k, n, 8) for n, _, _ in per_grid if n < BLOCK_THRESHOLD}
+            if {v for v, c in by.items() if c} != want:
+                raise AssertionError(f"solve_multiphase[{name}]: {k} launched {by}, "
+                                     f"the grids' n select {sorted(want)}")
+        out[name] = {"wall_s": wall, "grids": sol.grids, "per_grid": per_grid,
+                     "objective": sol.objective, "objective_rel_err_vs_jax": obj_rel,
+                     "host_syncs": sol.host_syncs, "launches_by_variant": by_variant,
+                     "ipm_wall_s": [g["wall_s"] for g in sol.grid_stats],
+                     **golden_checks(name, sol)}
+        by_case[name] = by_variant
+    emit("solve_multiphase", lane_kkt=True, **out)
+    return by_case
 
 
 WRAPPERS = {"lane_cholesky": bl.lane_cholesky, "lane_cho_solve": bl.lane_cho_solve}
@@ -1080,19 +1507,25 @@ def main():
         reference=REFERENCE_OBJECTIVES_BLOCK,
         block_iterations=(REFERENCE_ITERATIONS_BLOCK, REFERENCE_ITERATIONS_BLOCK_DENSE))
     phase_block_factor()
+    by_variant_launch = phase_multiphase_sweep("sweep_launch")
+    by_variant_bb = phase_multiphase_sweep("sweep_boostbrake")
+    by_variant_solves = phase_solve_multiphase()
 
     source = "lpopc_tpu_torch/csrc/batched_linalg.cu"
     replaces = {"lane_cholesky": "lpopc_tpu/ops/batched_linalg.py:128",
                 "lane_cho_solve": "lpopc_tpu/ops/batched_linalg.py:193"}
+    paths = {k: {"sweep_lane": by_variant[k], "sweep_lane_large": by_variant_large[k],
+                 **{f"hp_solve_{m}": hp[m][k] for m in hp},
+                 "sweep_block": by_variant_block[k], "sweep_launch": by_variant_launch[k],
+                 "sweep_boostbrake": by_variant_bb[k],
+                 **{f"solve_multiphase_{c}": by_variant_solves[c][k] for c in by_variant_solves}}
+             for k in WRAPPERS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source, "replaces": replaces[k],
-         # the hp solve's paths together: ph and hp-Liu under block_kkt="off",
-         # and ph under "auto", whose block grids launch neither kernel
-         "launches": sum(sum(hp[m][k].values()) for m in hp), **timed[MAIN_SHAPE][k],
-         "launches_by_variant": {"sweep_lane": by_variant[k],
-                                 "sweep_lane_large": by_variant_large[k],
-                                 **{f"hp_solve_{m}": hp[m][k] for m in hp},
-                                 "sweep_block": by_variant_block[k]},
+         # every path's counted run together (each path with the counts
+         # zeroed just before it), launches_by_variant path by path
+         "launches": sum(sum(by.values()) for by in paths[k].values()),
+         **timed[MAIN_SHAPE][k], "launches_by_variant": paths[k],
          "launch_floor_ms": launch_floor,
          "at_shapes": [{"B": B, "n": n, "dtype": str(dt).replace("torch.", ""), **timed[
              (B, n, dt)][k]} for (B, n, dt) in TIMED_SHAPES if (B, n, dt) != MAIN_SHAPE]}

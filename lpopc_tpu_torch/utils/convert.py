@@ -2,8 +2,8 @@
 
 The two packages never import each other. What crosses between them — the
 nominal inputs of a batch solver, the scale vectors of a scaled NLP, the
-fields of a solve result, an hp solve's :class:`Solution` — crosses as numpy
-arrays through these functions, so that tests feed both sides the same
+fields of a solve result, an hp solve's :class:`Solution`, a data table's
+coefficients — crosses as numpy arrays through these functions, so that tests feed both sides the same
 inputs and warm-start one from the other's result.
 """
 
@@ -16,6 +16,7 @@ import torch
 
 from ..core.ipm import IPMResult
 from ..core.postprocess import PhaseSolution, Solution
+from ..ops.tables import Spline1D, Spline2D
 from .device import resolve_device
 
 _INT_FIELDS = ("status", "iterations")
@@ -83,3 +84,16 @@ def solution_from_reference(ref) -> Solution:
             for f in dataclasses.fields(Solution)
             if f.name != "phases" and hasattr(ref, f.name)}
     return Solution(phases=phases, **rest)
+
+
+def spline_from_reference(ref):
+    """The port's :class:`Spline1D` or :class:`Spline2D` holding a JAX
+    package table's coefficients as they are (no refit): ``xs``, ``ys``,
+    ``ms`` for a 1-D table, ``xs``, ``ys``, ``z``, ``mx``, ``my``, ``mxy``
+    for a 2-D one, read field by field as float64 numpy."""
+    def arr(name):
+        return torch.as_tensor(np.array(getattr(ref, name), dtype=np.float64))
+
+    if hasattr(ref, "z"):
+        return Spline2D(*(arr(k) for k in ("xs", "ys", "z", "mx", "my", "mxy")))
+    return Spline1D(*(arr(k) for k in ("xs", "ys", "ms")))

@@ -6,8 +6,10 @@ Runs the 512-instance brachistochrone sweep of ``chip_smoke.py`` (degrees
 factorization routes, and prints one JSON line per route: wall seconds, the
 number of device kernels launched, the device-busy share (sum of kernel
 durations over wall time), and the kernels that take the most device time.
+With ``--sweep sweep_launch`` or ``--sweep sweep_boostbrake`` it profiles
+that multi-phase sweep of ``chip_smoke.py`` instead, on the kernel route.
 
-    python3 scripts/torch_sweep_profile.py            # needs one CUDA device
+    python3 scripts/torch_sweep_profile.py [--sweep NAME]   # needs one CUDA device
 
 Writes the full tables to ``profile_out/torch_sweep_profile_<route>.txt``
 (next to the repository root; the directory is git-ignored).
@@ -32,13 +34,24 @@ from lpopc_tpu_torch.models import brachistochrone  # noqa: E402
 from lpopc_tpu_torch.parallel.batch import make_batch_solver  # noqa: E402
 
 
-def profile_route(lane_kkt: bool, out_dir: str) -> dict:
+def setup(sweep: str, lane_kkt: bool):
+    """The batch solver, its inputs and the batch of a sweep of chip_smoke.py."""
+    if sweep == "brachistochrone":
+        bs = make_batch_solver(
+            brachistochrone.make_problem(degrees=cs.DEGREES),
+            SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=lane_kkt)))
+        return bs, cs.sweep_inputs(bs, cs.BATCH), cs.BATCH
+    make, ipm, inputs, batch, _, _ = cs.MULTIPHASE_SWEEPS[sweep]
+    bs = make_batch_solver(make(), SolveOptions(ipm=IPMOptions(**ipm, lane_kkt=lane_kkt)))
+    args = tuple(torch.as_tensor(a, device=cs.DEVICE, dtype=torch.float64)
+                 for a in inputs(bs, batch))
+    return bs, args, batch
+
+
+def profile_route(lane_kkt: bool, out_dir: str, sweep: str = "brachistochrone") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    bs = make_batch_solver(
-        brachistochrone.make_problem(degrees=cs.DEGREES),
-        SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=lane_kkt)))
-    args = cs.sweep_inputs(bs, cs.BATCH)
+    bs, args, batch = setup(sweep, lane_kkt)
     bs.run(*args)                                   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -60,10 +73,11 @@ def profile_route(lane_kkt: bool, out_dir: str) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     route = "lane" if lane_kkt else "apply"
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"torch_sweep_profile_{route}.txt"), "w") as fh:
+    tag = route if sweep == "brachistochrone" else f"{sweep}_{route}"
+    with open(os.path.join(out_dir, f"torch_sweep_profile_{tag}.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
     return {
-        "route": route, "batch": cs.BATCH, "wall_s": wall_plain,
+        "sweep": sweep, "route": route, "batch": batch, "wall_s": wall_plain,
         "wall_s_under_profiler": wall_prof,
         "outer_iterations": bs.solver.outer_iterations,
         "host_syncs": bs.solver.host_syncs,
@@ -76,6 +90,12 @@ def profile_route(lane_kkt: bool, out_dir: str) -> dict:
             {"name": e.key[:70], "calls": e.count, "ms": e.self_device_time_total / 1e3}
             for e in top
         ],
+        # the host side: the operators that take the most CPU time themselves
+        "host_ms": sum(e.self_cpu_time_total for e in prof.key_averages()) / 1e3,
+        "top_host_ops": [
+            {"name": e.key[:70], "calls": e.count, "ms": e.self_cpu_time_total / 1e3}
+            for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+        ],
     }
 
 
@@ -86,8 +106,9 @@ def main():
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
     out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "profile_out")
-    for lane in (True, False):
-        print(json.dumps(profile_route(lane, out_dir)), flush=True)
+    sweep = sys.argv[sys.argv.index("--sweep") + 1] if "--sweep" in sys.argv else "brachistochrone"
+    for lane in ((True, False) if sweep == "brachistochrone" else (True,)):
+        print(json.dumps(profile_route(lane, out_dir, sweep)), flush=True)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ import torch
 import lpopc_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the models of the multi-phase slice, and the solve entry of each that has
+# one (tumor's only entry, solve_auto, is a stub)
+MULTIPHASE_MODELS = {
+    "launch": "solve", "boostbrake": "solve", "climb": "solve", "reentry": "solve",
+    "hangglider": "solve", "goddard": "solve_three_phase", "tumor": None,
+}
 
 
 def _port_modules():
@@ -31,6 +37,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     mods = _port_modules()
     assert len(mods) >= 20
     assert {"lpopc_tpu_torch.core.block_kkt", "lpopc_tpu_torch.core.kkt_blocks"} <= set(mods)
+    assert {"lpopc_tpu_torch.ops.tables"} | {
+        f"lpopc_tpu_torch.models.{m}" for m in MULTIPHASE_MODELS} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
@@ -81,6 +89,29 @@ def test_device_none_means_cuda_and_raises_without_one():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("model", sorted(m for m, f in MULTIPHASE_MODELS.items() if f))
+def test_model_solve_device_none_raises_without_cuda(model):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is honoured")
+    import importlib
+
+    mod = importlib.import_module(f"lpopc_tpu_torch.models.{model}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(mod, MULTIPHASE_MODELS[model])()
+    if model == "goddard":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.solve()
+
+
+@pytest.mark.parametrize("model", ["goddard", "tumor"])
+def test_solve_auto_is_a_stub_naming_its_item(model):
+    import importlib
+
+    mod = importlib.import_module(f"lpopc_tpu_torch.models.{model}")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 15"):
+        mod.solve_auto()
 
 
 def test_kernel_wrappers_never_fall_back_for_a_non_cpu_tensor():
