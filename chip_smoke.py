@@ -60,6 +60,25 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
                     (``Spline1D`` and ``Spline2D`` in the dynamics), each
                     against the JAX package's grids, meshes, iterations and
                     objective and against its golden;
+14. ``solve_singular`` the automatic singular-arc solves on the kernel route:
+                    ``goddard.solve_auto()`` (decompose), ``tumor.solve_auto()``
+                    (continuation, four rungs) and ``tumor.solve_auto(method=
+                    "decompose")``, each solve of each workflow against the
+                    JAX package's arcs, phases, status, grids, per-grid
+                    iterations and objective, and the goldens;
+15. ``sensitivities`` the 512-instance sweep of ``sweep_lane`` through
+                    ``DifferentiableSolver`` (``core/diff.py``): the gradient of
+                    the summed objective in the bounds by the IFT adjoint,
+                    against the dual envelope sensitivities at every instance
+                    and central differences of the solver at 4;
+16. ``sweep_two_stage`` the same sweep with ``two_stage=True`` (stage 1 in
+                    float32, K1 and K2 in f32; stage 2 in f64): every
+                    instance solved to ``sweep_lane``'s objectives;
+17. ``mpc``         ``bench.py::bench_mpc`` as written there (B = 1), then 64
+                    plants in one controller on the kernel route, 30 steps
+                    each, per step against the JAX package's statuses,
+                    iterations and u0; the value gradient against finite
+                    differences;
 
 and prints one JSON line per phase, then a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -70,6 +89,7 @@ printed. Without a CUDA device it exits at once with an error.
 from __future__ import annotations
 
 import json
+import os
 import re
 from dataclasses import replace
 import statistics
@@ -85,14 +105,18 @@ if not torch.cuda.is_available():
 
 from lpopc_tpu_torch.core import solve as solve_mod
 from lpopc_tpu_torch.core.block_kkt import factor_from_blocks, make_block_spec
-from lpopc_tpu_torch.core.ipm import SOLVED, IPMOptions
+from lpopc_tpu_torch.core.diff import DifferentiableSolver
+from lpopc_tpu_torch.core.ipm import MAX_ITER, SOLVED, IPMOptions
 from lpopc_tpu_torch.core.kkt_blocks import bind_structured_kkt, make_structured_kkt
+from lpopc_tpu_torch.core.problem import Phase, Problem
 from lpopc_tpu_torch.core.solve import SolveOptions
 from lpopc_tpu_torch.core.structured import make_structured_jacobian
 from lpopc_tpu_torch.core.transcribe import const_mesh, transcribe
-from lpopc_tpu_torch.models import boostbrake, brachistochrone, climb, hypersensitive, launch
+from lpopc_tpu_torch.models import (boostbrake, brachistochrone, climb, goddard, hypersensitive,
+                                    launch, tumor)
 from lpopc_tpu_torch.ops import batched_linalg as bl
 from lpopc_tpu_torch.parallel.batch import make_batch_solver
+from lpopc_tpu_torch.parallel.mpc import MPCController
 from lpopc_tpu_torch.utils import build
 
 DEVICE = torch.device("cuda", 0)
@@ -553,6 +577,45 @@ LAUNCH_GOLDEN_KG = 7529.71                       # tests/test_examples.py
 BB_GOLDEN_J, BB_GOLDEN_Q = 4.4686059, 2.6933582834  # tests/test_boostbrake.py's oracle
 CLIMB_GOLDEN = 67.7506                           # tests/test_climb.py
 
+# The JAX package's results the last four phases hold (CPU, x64; printed by
+# scripts/jax_singular_pins.py, which names each case's inputs): the
+# automatic singular-arc solves (goddard_auto, tumor_auto,
+# tumor_auto_decompose: arcs, each solve's phases, status, grids, per-grid
+# (n, m, iterations) and objective), the MPC runs (mpc_bench: bench.py's
+# controller at B = 1; mpc_batch: 64 plants; mpc_round3: the value gradient
+# and its finite difference) and the two-stage batch of 16 (two_stage_b16).
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                       "jax_singular_pins.json"), encoding="utf-8") as _pins:
+    SINGULAR_PINS = json.load(_pins)
+SINGULAR_SOLVES = {
+    # pin case -> (model, keyword arguments beside device and the options)
+    "goddard_auto": (goddard, {}),
+    "tumor_auto": (tumor, {}),
+    "tumor_auto_decompose": (tumor, dict(method="decompose")),
+}
+SINGULAR_RTOL = 1e-8
+TWO_STAGE_STAGE1_MAX_ITER = 40                  # make_batch_solver's stage1_max_iter
+# Where rounding decides a solve's count (ROADMAP Queue 3 entry 6): per
+# case, the solve's index in the workflow -> the least and the most count the
+# JAX package takes when that solve's start is scaled by 1 + 1e-15·U(-1, 1)
+# (and in the pinned run), and the statuses it ends in. Both tumor workflows
+# start with the same rung (scripts/jax_singular_pins.py tumor_rung0_jitter:
+# 72-74 iterations, objectives 1.4e-8 apart). Every other solve must take
+# JAX's count exactly.
+_RUNG0 = SINGULAR_PINS["tumor_rung0_jitter"]
+_RUNG0_SPREAD = (min(_RUNG0["iterations"]), max(_RUNG0["iterations"]), set(_RUNG0["status"]))
+ROUNDING_SPREAD_SINGULAR = {"tumor_auto": {0: _RUNG0_SPREAD},
+                            "tumor_auto_decompose": {0: _RUNG0_SPREAD}}
+GODDARD_GOLDEN_TOL = 1e-4                       # tests/test_goddard.py
+TUMOR_GOLDEN = {"tumor_auto": (1954.4, 2.0), "tumor_auto_decompose": (1951.8, 3.0)}
+# sensitivities: tests/test_diff.py's tolerances
+ENVELOPE_RTOL, ENVELOPE_ATOL = 1e-5, 1e-7
+FD_EPS, FD_RTOL, FD_ATOL, FD_INSTANCES = 1e-6, 2e-4, 1e-8, 4
+# mpc: bench.py::bench_mpc's plant and loop; the batched controller's plants
+MPC_STEPS, MPC_DT, MPC_BATCH = 30, 0.02, 64
+MPC_U0_TOL = 1e-8
+MPC_FD_H, MPC_FD_RTOL = 1e-5, 5e-3              # tests/test_round3.py
+
 # Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s in
 # float64 on the tensor cores (K1's trailing update runs there; outside them
 # float64 has half that) and 67 TFLOP/s in float32 outside them (TF32 is
@@ -607,10 +670,20 @@ KERNEL_SHAPES.update({(1, n, F64): (bl.variant("lane_cholesky", n, 8),
 KERNEL_SHAPES.update({(BATCH_LAUNCH, LAUNCH_SWEEP_REFERENCE["n"], F64): ("global", "global"),
                       (BATCH_BOOSTBRAKE, BOOSTBRAKE_SWEEP_REFERENCE["n"], F64):
                           ("shared", "shared")})
+# the singular-arc solves' every (1, n), the two-stage sweep's f32 stage and
+# the batched controller's (n = 28)
+SINGULAR_N = sorted({g[0] for case in SINGULAR_SOLVES for sv in SINGULAR_PINS[case]["solves"]
+                     for g in sv["per_grid"]})
+MPC_N = 28
+KERNEL_SHAPES.update({(1, n, F64): (bl.variant("lane_cholesky", n, 8),
+                                    bl.variant("lane_cho_solve", n, 8)) for n in SINGULAR_N})
+KERNEL_SHAPES.update({(512, 53, F32): ("shared", "shared"),
+                      (MPC_BATCH, MPC_N, F64): ("shared", "shared")})
 MAIN_SHAPE = (512, 53, F64)                   # the sweep's
 TIMED_SHAPES = (MAIN_SHAPE, (64, 197, F64), (8, 700, F64), (1, 515, F64), (1, 2051, F64),
                 (1, 4099, F64), (512, 300, F64), (BATCH_LAUNCH, 546, F64),
-                (BATCH_BOOSTBRAKE, 58, F64))
+                (BATCH_BOOSTBRAKE, 58, F64), (512, 53, F32), (MPC_BATCH, MPC_N, F64),
+                *((1, n, F64) for n in SINGULAR_N))
 REL_TOL = {F64: 1e-10, F32: 5e-3}
 # K2's global variant sums each tile's terms in a fixed order, whatever the
 # order in which other blocks publish: REPEATS calls at each of these shapes
@@ -885,16 +958,22 @@ def sweep_inputs(bs, batch: int):
                  for a in (z0, zl, zu, cl, cu))
 
 
+def solvers_of(bs):
+    """The IPM solves a batch solver runs: one, or two under two_stage."""
+    return [sv for sv in (bs.stage1_solver, bs.solver) if sv is not None]
+
+
 def reset_counters(bs):
     bl.reset_launches()
-    bs.solver.host_syncs = 0
-    bs.solver.outer_iterations = 0
+    for sv in solvers_of(bs):
+        sv.host_syncs = 0
+        sv.outer_iterations = 0
 
 
-def counted_runs(bs, args):
-    """One warm-up run of a batch solver, then three timed runs; every count
-    is zeroed just before the third, the counted run. Returns its result,
-    the three walls, the warm-up's wall, its launches (total and per
+def counted_runs(bs, args, timed: int = 3):
+    """One warm-up run of a batch solver, then ``timed`` timed runs; every
+    count is zeroed just before the last, the counted run. Returns its
+    result, the timed walls, the warm-up's wall, its launches (total and per
     variant), host syncs and outer iterations."""
     def run_once():
         torch.cuda.synchronize()
@@ -905,16 +984,21 @@ def counted_runs(bs, args):
 
     _, warm_s = run_once()                            # warm-up (first-use costs)
     walls = []
-    for rep in range(3):
-        if rep == 2:
+    for rep in range(timed):
+        if rep == timed - 1:
             reset_counters(bs)
         res, wall = run_once()
         walls.append(wall)
     launches = {k: getattr(bl, k).launches for k in ("lane_cholesky", "lane_cho_solve")}
     by_variant = {k: {v: getattr(getattr(bl, k), f"launches_{v}") for v in ("shared", "global")}
                   for k in launches}
-    return (res, walls, warm_s, launches, by_variant, bs.solver.host_syncs,
-            bs.solver.outer_iterations)
+    return (res, walls, warm_s, launches, by_variant,
+            sum(sv.host_syncs for sv in solvers_of(bs)),
+            sum(sv.outer_iterations for sv in solvers_of(bs)))
+
+
+# each sweep's objectives, median iterations and solves/s, by phase name
+SWEEP_RESULTS = {}
 
 
 def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
@@ -1002,6 +1086,8 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
             raise AssertionError(f"{name}: {key} is {got[key]}, expected {want}")
 
     wall = statistics.median(walls)
+    SWEEP_RESULTS[name] = {"objective": objective, "iters_p50": float(np.median(iterations)),
+                           "solves_per_s": batch * solved_frac / wall}
     emit(name, lane_kkt=lane_kkt, batch=batch, n=bs.n, m=bs.m,
          solved_frac=solved_frac, wall_s=wall, wall_s_runs=walls, warmup_s=warm_s,
          solves_per_s=batch * solved_frac / wall,
@@ -1480,6 +1566,364 @@ def phase_block_factor():
     return out
 
 
+def launch_counts():
+    """Every launch count of both wrappers: per variant and per element type."""
+    return {k: {v: getattr(w, f"launches_{v}") for v in ("shared", "global", "f64", "f32")}
+            for k, w in WRAPPERS.items()}
+
+
+def by_variant_now():
+    return {k: {v: c[v] for v in ("shared", "global")} for k, c in launch_counts().items()}
+
+
+def phase_solve_singular():
+    """The automatic singular-arc solves on the kernel route (the models'
+    own auto_options, and Goddard's three_phase_options for its decomposed
+    problem, with lane_kkt=True), each with the counts zeroed just before
+    it: the JAX package's arcs (kinds and node ranges), and for every solve
+    of the workflow its phases, status, grids, per-grid (n, m, iterations)
+    and, where JAX's solved, objective; the final objective and the goldens;
+    each kernel launched in exactly the variants its grids' n select."""
+    out, by_case = {}, {}
+    real = solve_mod.solve
+    for case, (model, kw) in SINGULAR_SOLVES.items():
+        pin = SINGULAR_PINS[case]
+        solves = []
+
+        def recorded(problem, options=SolveOptions(), **on):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = real(problem, options, **on)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            solves.append({
+                "phases": len(problem.phases), "status": int(sol.status), "grids": sol.grids,
+                "objective": float(sol.objective),
+                "per_grid": [[g["n"], g["m"], g["iterations"]] for g in sol.grid_stats],
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: {v: after[k][v] - before[k][v] for v in ("shared", "global")}
+                             for k in after}})
+            return sol
+
+        extra = ({"decomposed_options": lane_options(goddard.three_phase_options())}
+                 if model is goddard else {})
+        solve_mod.solve = recorded
+        try:
+            bl.reset_launches()                       # the counted run starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = model.solve_auto(options=lane_options(model.auto_options()), **extra, **kw)
+            torch.cuda.synchronize()                  # device=None: the GPU
+            wall = time.perf_counter() - t0
+        finally:
+            solve_mod.solve = real
+        by_variant = by_variant_now()
+        arcs = [[a.kind, a.k_start, a.k_end] for a in sol.arcs]
+        want_arcs = [[a["kind"], a["k_start"], a["k_end"]] for a in pin["arcs"]]
+        off = [] if arcs == want_arcs else [f"arcs {arcs}, JAX's {want_arcs}"]
+        if len(solves) != len(pin["solves"]):
+            off.append(f"{len(solves)} solves, JAX's {len(pin['solves'])}")
+        spread = ROUNDING_SPREAD_SINGULAR.get(case, {})
+        for i, (g, w) in enumerate(zip(solves, pin["solves"])):
+            g["objective_rel_err_vs_jax"] = abs(g["objective"] - w["objective"]) / abs(
+                w["objective"])
+            if (g["phases"], g["grids"]) != (w["phases"], w["grids"]) or [
+                    pg[:2] for pg in g["per_grid"]] != [pg[:2] for pg in w["per_grid"]]:
+                off.append(f"solve {i + 1}: (phases, grids, per grid (n, m, iterations)) "
+                           f"{(g['phases'], g['grids'], g['per_grid'])}, JAX's "
+                           f"{(w['phases'], w['grids'], w['per_grid'])}")
+            elif i in spread:
+                lo, hi, statuses = spread[i]
+                if not (g["status"] in statuses and lo <= g["per_grid"][0][2] <= hi):
+                    off.append(f"solve {i + 1}: status {g['status']}, "
+                               f"{g['per_grid'][0][2]} iterations, outside JAX's spread "
+                               f"{spread[i]}")
+            elif (g["status"], g["per_grid"]) != (w["status"], w["per_grid"]):
+                off.append(f"solve {i + 1}: (status, per grid (n, m, iterations)) "
+                           f"{(g['status'], g['per_grid'])}, JAX's "
+                           f"{(w['status'], w['per_grid'])}")
+            # an iterate cut by the iteration limit is no answer
+            elif w["status"] == SOLVED and not g["objective_rel_err_vs_jax"] <= SINGULAR_RTOL:
+                off.append(f"solve {i + 1}: objective {g['objective']!r}, "
+                           f"JAX's {w['objective']!r}")
+        obj_rel = abs(sol.objective - pin["objective"]) / abs(pin["objective"])
+        if not (sol.status == pin["status"] == SOLVED and obj_rel <= SINGULAR_RTOL):
+            off.append(f"final status {sol.status}, objective {sol.objective!r} "
+                       f"({obj_rel} relative to JAX's)")
+        if model is goddard:
+            golden = -sol.objective
+            if not (abs(golden - goddard.PUBLISHED_HF) < GODDARD_GOLDEN_TOL
+                    and [a.kind for a in sol.arcs] == ["upper", "singular", "lower"]):
+                off.append(f"h(tf) {golden!r}, arcs {arcs}")
+        else:
+            golden = sol.objective * tumor.SCALE
+            want, tol = TUMOR_GOLDEN[case]
+            if not abs(golden - want) < tol:
+                off.append(f"p(tf) {golden!r}, golden {want} ± {tol}")
+        for k, by in by_variant.items():
+            want = {bl.variant(k, g[0], 8) for sv in solves for g in sv["per_grid"]}
+            if {v for v, c in by.items() if c} != want:
+                off.append(f"{k} launched {by}, the grids' n select {sorted(want)}")
+        out[case] = {"wall_s": wall, "arcs": arcs, "status": sol.status,
+                     "objective": sol.objective, "objective_rel_err_vs_jax": obj_rel,
+                     "golden": golden, "launches_by_variant": by_variant, "solves": solves,
+                     "rounding_decides": {str(i + 1): {"port": solves[i]["per_grid"][0][2],
+                                                       "jax": pin["solves"][i]["per_grid"][0][2],
+                                                       "jax_spread": list(spread[i][:2])}
+                                          for i in spread if i < len(solves)},
+                     "differences": off}
+        by_case[case] = by_variant
+    # every workflow's line first, so that one run shows every difference
+    emit("solve_singular", lane_kkt=True, **out)
+    off = {case: o["differences"] for case, o in out.items() if o["differences"]}
+    if off:
+        raise AssertionError(f"solve_singular: {off}")
+    return by_case
+
+
+def phase_sensitivities():
+    """sweep_lane's 512 instances through DifferentiableSolver: a solve, the
+    counted forward through the autograd Function (the counts zeroed just
+    before it), and the backward (the IFT adjoint: one batched KKT-adjoint
+    solve) with its wall and the peak memory it adds. The gradient of the
+    summed objective in zl + zu must give the dual envelope sensitivities
+    (x0_sensitivities) on the pinned initial states at every instance, and
+    central differences of the solver on the terminal-target pins at the
+    first FD_INSTANCES."""
+    problem = brachistochrone.make_problem(degrees=DEGREES)
+    bs = make_batch_solver(problem, SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60,
+                                                                lane_kkt=True)))
+    dsol = DifferentiableSolver(bs)
+    z0, zl, zu, cl, cu = sweep_inputs(bs, BATCH)
+    res = bs.run(z0, zl, zu, cl, cu)                  # warm-up, and the status
+    if not bool((res.status == SOLVED).all()):
+        raise AssertionError("sensitivities: not every instance solved")
+    zl_g, zu_g = zl.clone().requires_grad_(), zu.clone().requires_grad_()
+    reset_counters(bs)                                # the counted run starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, s, lam, obj = dsol(z0, zl_g, zu_g, cl, cu)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    by_variant, outer = by_variant_now(), bs.solver.outer_iterations
+    forward_rel = float(((obj.detach() - res.objective).abs() / res.objective.abs()).max())
+    if not forward_rel <= 1e-10:
+        raise AssertionError(f"sensitivities: the autograd forward's objectives differ from "
+                             f"the solve's by {forward_rel} relative")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    g_zl, g_zu = torch.autograd.grad(obj.sum(), (zl_g, zu_g))
+    torch.cuda.synchronize()
+    backward_s = time.perf_counter() - t0
+    backward_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    g = (g_zl + g_zu).cpu().numpy()
+    if not np.all(np.isfinite(g)):
+        raise AssertionError("sensitivities: a non-finite gradient")
+
+    # gate 1: the envelope, in unscaled units, at every instance
+    pl = bs.nlp.layout.phases[0]
+    sl = slice(pl.var_offset, pl.var_offset + pl.nx)
+    dual = bs.x0_sensitivities(res)
+    if not np.all(np.isfinite(dual)):
+        raise AssertionError("sensitivities: an initial state is not pinned")
+    g_unscaled = g[:, sl] * bs.scaled.var_scale[sl][None, :] / float(bs.scaled.obj_scale)
+    env_excess = float(np.max(np.abs(g_unscaled - dual)
+                              - (ENVELOPE_ATOL + ENVELOPE_RTOL * np.abs(dual))))
+    if not env_excess <= 0.0:
+        raise AssertionError(f"sensitivities: the gradient misses the envelope "
+                             f"sensitivities by {env_excess} past rtol {ENVELOPE_RTOL}, "
+                             f"atol {ENVELOPE_ATOL}")
+
+    # gate 2: central differences of the solver on the terminal-target pins
+    first = pl.var_offset + (pl.npts - 1) * pl.nx
+    rows = range(first, first + 2)
+    k, nfd = len(rows), FD_INSTANCES
+    rep = [np.repeat(a[:nfd].cpu().numpy(), 2 * k, axis=0) for a in (z0, zl, zu, cl, cu)]
+    for b in range(nfd):
+        for j, r in enumerate(rows):
+            for sgn, sign in enumerate((1.0, -1.0)):
+                for a in rep[:3]:
+                    a[(b * k + j) * 2 + sgn, r] += sign * FD_EPS
+    res_fd = bs.run(*rep)
+    if not bool((res_fd.status == SOLVED).all()):
+        raise AssertionError("sensitivities: a finite-difference solve did not converge")
+    o = res_fd.objective.cpu().numpy().reshape(nfd, k, 2)
+    fd = (o[..., 0] - o[..., 1]) / (2 * FD_EPS)
+    g_rows = g[:nfd, first:first + 2]
+    fd_excess = float(np.max(np.abs(g_rows - fd) - (FD_ATOL + FD_RTOL * np.abs(fd))))
+    if not fd_excess <= 0.0:
+        raise AssertionError(f"sensitivities: gradient {g_rows.tolist()} against central "
+                             f"differences {fd.tolist()}")
+    for kk, by in by_variant.items():
+        if not (by["shared"] > 0 and by["global"] == 0):
+            raise AssertionError(f"sensitivities: {kk} launched {by}, expected shared only")
+    emit("sensitivities", batch=BATCH, n=bs.n, m=bs.m, adjoint_size=bs.n + 2 * bs.m,
+         forward_wall_s=forward_s, backward_wall_s=backward_s,
+         backward_added_peak_mb=backward_mb, outer_iterations=outer,
+         forward_vs_solve_max_rel=forward_rel,
+         launches_by_variant=by_variant,
+         envelope_max_abs_err=float(np.max(np.abs(g_unscaled - dual))),
+         envelope_rtol=ENVELOPE_RTOL, envelope_atol=ENVELOPE_ATOL,
+         fd_instances=nfd, fd_eps=FD_EPS, fd_max_abs_err=float(np.max(np.abs(g_rows - fd))),
+         fd_rtol=FD_RTOL, gradient_first=g_rows[0].tolist(), fd_first=fd[0].tolist())
+    return by_variant
+
+
+def phase_sweep_two_stage():
+    """sweep_lane's sweep with two_stage=True on the kernel route: stage 1
+    in float32 (K1 and K2 in f32), stage 2 in f64 from stage 1's point. At
+    least the JAX package's solved fraction of the same sweep (510 of 512:
+    in float32 rounding decides where the cascade ends, ROADMAP Queue 3
+    entry 7), every unsolved instance at the cascade's iteration limit as
+    JAX's are, every solved one at sweep_lane's objective (1e-7 relative),
+    the first 8 solved at the JAX package's; median total iterations below
+    4x sweep_lane's; both kernels launched in both element types, in their
+    shared variants."""
+    problem = brachistochrone.make_problem(degrees=DEGREES)
+    options = SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=True))
+    bs = make_batch_solver(problem, options, two_stage=True)       # device=None: the GPU
+    args = sweep_inputs(bs, BATCH)
+    # one timed run after the warm-up, within the script's time limit
+    res, walls, warm_s, launches, by_variant, host_syncs, outer = counted_runs(bs, args, 1)
+    by_dtype = {k: {v: c[v] for v in ("f32", "f64")} for k, c in launch_counts().items()}
+    stage_outer = [sv.outer_iterations for sv in solvers_of(bs)]
+    status = res.status.cpu().numpy()
+    objective = res.objective.cpu().numpy()
+    iterations = res.iterations.cpu().numpy()
+    lane = SWEEP_RESULTS["sweep_lane"]
+    solved_frac = float(np.mean(status == SOLVED))
+    jax = SINGULAR_PINS["two_stage_b512"]["two_stage"]
+    jax_solved_frac = float(np.mean(np.asarray(jax["status"]) == SOLVED))
+    unsolved = [(int(i), int(status[i]), int(iterations[i]))
+                for i in np.nonzero(status != SOLVED)[0]]
+    at_limit = bs.ipm_options.max_iter + TWO_STAGE_STAGE1_MAX_ITER
+    if (res.z.dtype != torch.float64 or solved_frac < jax_solved_frac
+            or any((st, its) != (MAX_ITER, at_limit) for _, st, its in unsolved)):
+        raise AssertionError(f"sweep_two_stage: solved_frac {solved_frac} (JAX's "
+                             f"{jax_solved_frac}), z {res.z.dtype}; (instance, status, "
+                             f"iterations) unsolved {unsolved}")
+    solved = status == SOLVED
+    rel = np.abs(objective - lane["objective"]) / np.abs(lane["objective"])
+    rel_lane = float(np.max(rel[solved]))
+    ref = np.asarray(REFERENCE_OBJECTIVES)
+    rel_ref = float(np.max((np.abs(objective[:len(ref)] - ref) / np.abs(ref))[solved[:len(ref)]]))
+    if not (rel_lane <= OBJECTIVE_TOL and rel_ref <= OBJECTIVE_TOL and all(solved[:len(ref)])):
+        raise AssertionError(f"sweep_two_stage: objectives {rel_lane} from sweep_lane's, "
+                             f"{rel_ref} from the JAX package's")
+    p50 = float(np.median(iterations))
+    if not p50 < 4.0 * lane["iters_p50"]:
+        raise AssertionError(f"sweep_two_stage: median iterations {p50}, sweep_lane's "
+                             f"{lane['iters_p50']}")
+    for k in WRAPPERS:
+        if not (by_dtype[k]["f32"] > 0 and by_dtype[k]["f64"] > 0
+                and by_variant[k]["global"] == 0):
+            raise AssertionError(f"sweep_two_stage: {k} launched {by_variant[k]}, "
+                                 f"{by_dtype[k]}; expected shared, in f32 and f64")
+    wall = statistics.median(walls)
+    emit("sweep_two_stage", lane_kkt=True, batch=BATCH, n=bs.n, m=bs.m,
+         solved_frac=solved_frac, wall_s=wall, wall_s_runs=walls, warmup_s=warm_s,
+         solves_per_s=BATCH * solved_frac / wall, sweep_lane_solves_per_s=lane["solves_per_s"],
+         iters_p50=p50, iters_max=int(iterations.max()), sweep_lane_iters_p50=lane["iters_p50"],
+         outer_iterations_by_stage=stage_outer, launches=launches,
+         launches_by_variant=by_variant, launches_by_dtype=by_dtype, host_syncs=host_syncs,
+         objective_max_rel_err_vs_sweep_lane=rel_lane,
+         first_objectives_max_rel_err_vs_jax=rel_ref, jax_solved_frac=jax_solved_frac,
+         unsolved=unsolved, jax_unsolved=[
+             (i, st, its) for i, (st, its) in enumerate(zip(jax["status"], jax["iterations"]))
+             if st != SOLVED])
+    return by_variant, by_dtype
+
+
+def double_integrator():
+    """bench.py::bench_mpc's plant (and tests/test_round3.py's)."""
+    return Problem(phases=(Phase(
+        nx=2, nu=1,
+        dynamics=lambda x, u, t, q: torch.stack([x[1], u[0]]),
+        lagrange=lambda x, u, t, q: 0.5 * u[0] ** 2 + x[0] ** 2,
+        x0_bounds=(np.array([1.0, 0.0]), np.array([1.0, 0.0])),
+        xf_bounds=(np.zeros(2), np.zeros(2)),
+        x_bounds=(np.full(2, -10.0), np.full(2, 10.0)),
+        u_bounds=(-50.0, 50.0), t0_bounds=(0.0, 0.0), tf_bounds=(1.0, 1.0),
+        mesh_degrees=(8,), mesh_fractions=(-1.0, 1.0),
+    ),))
+
+
+def mpc_loop(ctrl, x, steps, name):
+    """bench_mpc's closed loop (x += dt·(x1, u0)) for one plant or a batch;
+    every step's statuses, iterations and u0 against the JAX package's
+    (SINGULAR_PINS[name])."""
+    pin = SINGULAR_PINS[name]
+    x = np.array(x, dtype=np.float64)
+    u0_err, iterations = 0.0, []
+    for step in range(steps):
+        u0, info = ctrl.step(x)
+        u0 = np.asarray(u0, dtype=np.float64)
+        status, its = info["status"].tolist(), info["iterations"].tolist()
+        if status != pin["status"][step] or its != pin["iterations"][step]:
+            raise AssertionError(f"mpc[{name}] step {step}: (status, iterations) "
+                                 f"{(status, its)}, JAX's "
+                                 f"{(pin['status'][step], pin['iterations'][step])}")
+        u0_err = max(u0_err, float(np.max(np.abs(u0.reshape(-1) - pin["u0"][step]))))
+        iterations.append(its)
+        x = (x + MPC_DT * np.array([x[1], float(u0[0])]) if x.ndim == 1
+             else x + MPC_DT * np.stack([x[:, 1], u0[:, 0]], axis=1))
+    if not u0_err <= MPC_U0_TOL:
+        raise AssertionError(f"mpc[{name}]: u0 differs from JAX's by {u0_err}")
+    return u0_err, iterations
+
+
+def phase_mpc():
+    """bench.py::bench_mpc as written there (B = 1, its own options: the
+    library route), then MPC_BATCH plants in one controller on the kernel
+    route (the counts zeroed just before it), MPC_STEPS steps each, every
+    step against the JAX package's; then tests/test_round3.py's value
+    gradient against a fresh controller's finite difference."""
+    ctrl = MPCController(double_integrator(), SolveOptions(tol=1e-6), shift_dt=MPC_DT)
+    bl.reset_launches()
+    err1, its1 = mpc_loop(ctrl, [1.0, 0.0], MPC_STEPS, "mpc_bench")
+    bench_launches = by_variant_now()
+
+    opts = SolveOptions(tol=1e-6, ipm=IPMOptions(
+        tol=1e-6, max_iter=SolveOptions().max_iterations, mu_init=1e-2, lane_kkt=True))
+    x0 = np.array([1.0, 0.0]) + 0.1 * np.random.default_rng(SEED).uniform(-1, 1, (MPC_BATCH, 2))
+    ctrl64 = MPCController(double_integrator(), opts, batch=MPC_BATCH, shift_dt=MPC_DT)
+    bl.reset_launches()                               # the counted run starts here
+    err64, its64 = mpc_loop(ctrl64, x0, MPC_STEPS, "mpc_batch")
+    by_variant = by_variant_now()
+    for k, by in by_variant.items():
+        if not (by["shared"] > 0 and by["global"] == 0):
+            raise AssertionError(f"mpc: {k} launched {by}, expected shared only")
+    vg = ctrl64.value_gradient()
+    vg_err = float(np.max(np.abs(vg - np.asarray(SINGULAR_PINS["mpc_batch"]["value_gradient"]))))
+    if not vg_err <= 1e-8 * max(1.0, float(np.max(np.abs(vg)))):
+        raise AssertionError(f"mpc: the batch's value gradient differs from JAX's by {vg_err}")
+
+    want = SINGULAR_PINS["mpc_round3"]["value_gradient"]
+    c1 = MPCController(double_integrator(), SolveOptions(tol=1e-8))
+    _, info = c1.step(np.array([1.0, 0.0]))
+    g = c1.value_gradient()
+    _, info_h = MPCController(double_integrator(), SolveOptions(tol=1e-8)).step(
+        np.array([1.0 + MPC_FD_H, 0.0]))
+    fd = (float(info_h["objective"][0]) - float(info["objective"][0])) / MPC_FD_H
+    if not (abs(g[0, 0] - fd) < MPC_FD_RTOL * max(1.0, abs(fd))
+            and float(np.max(np.abs(g - np.asarray(want["gradient"])))) <= 1e-8):
+        raise AssertionError(f"mpc: value gradient {g.tolist()}, finite difference {fd}, "
+                             f"JAX's {want['gradient']}")
+    emit("mpc", bench={"batch": 1, "steps": MPC_STEPS, "lane_kkt": False,
+                       "mpc_p50_solve_ms": ctrl.percentile_ms(50),
+                       "p90_ms": ctrl.percentile_ms(90), "u0_max_abs_err_vs_jax": err1,
+                       "iterations": [i[0] for i in its1], "launches": bench_launches},
+         batch={"batch": MPC_BATCH, "n": ctrl64.bs.n, "m": ctrl64.bs.m, "steps": MPC_STEPS,
+                "lane_kkt": True, "mpc_p50_solve_ms": ctrl64.percentile_ms(50),
+                "p90_ms": ctrl64.percentile_ms(90), "u0_max_abs_err_vs_jax": err64,
+                "iterations_max_by_step": [max(i) for i in its64],
+                "value_gradient_max_abs_err_vs_jax": vg_err, "launches_by_variant": by_variant},
+         value_gradient=g[0].tolist(), value_gradient_fd=fd)
+    return by_variant
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -1510,6 +1954,10 @@ def main():
     by_variant_launch = phase_multiphase_sweep("sweep_launch")
     by_variant_bb = phase_multiphase_sweep("sweep_boostbrake")
     by_variant_solves = phase_solve_multiphase()
+    by_variant_singular = phase_solve_singular()
+    by_variant_sens = phase_sensitivities()
+    by_variant_two_stage, by_dtype_two_stage = phase_sweep_two_stage()
+    by_variant_mpc = phase_mpc()
 
     source = "lpopc_tpu_torch/csrc/batched_linalg.cu"
     replaces = {"lane_cholesky": "lpopc_tpu/ops/batched_linalg.py:128",
@@ -1518,7 +1966,11 @@ def main():
                  **{f"hp_solve_{m}": hp[m][k] for m in hp},
                  "sweep_block": by_variant_block[k], "sweep_launch": by_variant_launch[k],
                  "sweep_boostbrake": by_variant_bb[k],
-                 **{f"solve_multiphase_{c}": by_variant_solves[c][k] for c in by_variant_solves}}
+                 **{f"solve_multiphase_{c}": by_variant_solves[c][k] for c in by_variant_solves},
+                 **{f"solve_singular_{c}": by_variant_singular[c][k]
+                    for c in by_variant_singular},
+                 "sensitivities": by_variant_sens[k], "sweep_two_stage": by_variant_two_stage[k],
+                 "mpc_batch": by_variant_mpc[k]}
              for k in WRAPPERS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source, "replaces": replaces[k],
@@ -1526,6 +1978,7 @@ def main():
          # zeroed just before it), launches_by_variant path by path
          "launches": sum(sum(by.values()) for by in paths[k].values()),
          **timed[MAIN_SHAPE][k], "launches_by_variant": paths[k],
+         "launches_by_dtype": {"sweep_two_stage": by_dtype_two_stage[k]},
          "launch_floor_ms": launch_floor,
          "at_shapes": [{"B": B, "n": n, "dtype": str(dt).replace("torch.", ""), **timed[
              (B, n, dt)][k]} for (B, n, dt) in TIMED_SHAPES if (B, n, dt) != MAIN_SHAPE]}

@@ -17,6 +17,7 @@ plus optional Betts bounds-based variable scaling
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -88,6 +89,31 @@ class ScaledNLP:
             return H / (v[:, None] * v[None, :])
 
         return jac_s, hess_s
+
+    def rebind(self, objective: Callable, constraints: Callable, dtype) -> "ScaledNLP":
+        """The same scaling (these host scale vectors, not a new sampling)
+        applied to ``objective``/``constraints`` — the same NLP transcribed
+        in ``dtype`` — with callables and structured wrappers in ``dtype``.
+        The two-stage batch solver binds its float32 stage this way, since
+        :func:`scale_nlp` at float32 would sample different scales."""
+        obj_s, con_s = _scaled_callables(objective, constraints, self.obj_scale,
+                                         self.con_scale, self.var_scale, self.device, dtype)
+        return dataclasses.replace(self, objective=obj_s, constraints=con_s, dtype=dtype)
+
+
+def _scaled_callables(objective, constraints, sf, sc, v, device, dtype):
+    """``sf·f(z_s / v)`` and ``sc·c(z_s / v)`` with the scale vectors on
+    ``device`` in ``dtype``."""
+    sc_j = torch.as_tensor(np.asarray(sc), device=device, dtype=dtype)
+    v_j = torch.as_tensor(np.asarray(v), device=device, dtype=dtype)
+
+    def obj_s(zs):
+        return sf * objective(zs / v_j)
+
+    def con_s(zs):
+        return sc_j * constraints(zs / v_j)
+
+    return obj_s, con_s
 
 
 def scale_nlp(
@@ -166,14 +192,7 @@ def scale_nlp(
     sf = float(min(1.0, g_max / g_inf)) if g_inf > 0 else 1.0
     row_inf = np.max(np.abs(J0 / v[None, :]), axis=1) if m > 0 else np.zeros(0)
     sc = np.where(row_inf > 0, np.minimum(1.0, g_max / np.maximum(row_inf, 1e-300)), 1.0)
-    sc_j = to_dev(sc)
-    v_j = to_dev(v)
-
-    def obj_s(zs):
-        return sf * objective(zs / v_j)
-
-    def con_s(zs):
-        return sc_j * constraints(zs / v_j)
+    obj_s, con_s = _scaled_callables(objective, constraints, sf, sc, v, device, dtype)
 
     def sb(b, scale):
         return np.where(np.abs(b) < INF, b * scale, b)

@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
-from torch.func import hessian, jacfwd, vmap
+from torch.func import hessian, jacfwd, jacrev, vmap
 
 from ..ops.lgr import SegmentOps
 from .problem import Problem
@@ -163,6 +163,20 @@ def _phase_node_inputs(pl, X, U, t0, tf, q):
     )
 
 
+def _jacobian(fn, dtype):
+    """``jacfwd(fn)`` in float64. Below float64, ``jacrev(fn)``: forward-mode
+    AD of a 0-d float32 tensor times a Python float carries a float64
+    tangent, which breaks a float32 transcription (the two-stage batch
+    solver's first stage); reverse mode keeps float32."""
+    return jacfwd(fn) if dtype == torch.float64 else jacrev(fn)
+
+
+def _hessian(fn, dtype):
+    """``hessian(fn)`` in float64, ``jacrev(jacrev(fn))`` below (see
+    :func:`_jacobian`)."""
+    return hessian(fn) if dtype == torch.float64 else jacrev(jacrev(fn))
+
+
 def _split_node(pl, xi):
     nx, nu = pl.nx, pl.nu
     return xi[:nx], xi[nx : nx + nu], xi[nx + nu], xi[nx + nu + 1], xi[nx + nu + 2 :]
@@ -196,7 +210,8 @@ def make_jac_blocks(problem: Problem, layout: Layout) -> Callable:
                 return -(tf_ - t0_) / 2.0 * _vector(f, z, pl.nx)
 
             xi_nodes = _phase_node_inputs(pl, X, U, t0, tf, q)
-            dblocks = vmap(jacfwd(node_dyn), in_dims=(0, 0))(xi_nodes, tau)  # (N, nx, nbn)
+            # (N, nx, nbn)
+            dblocks = vmap(_jacobian(node_dyn, z.dtype), in_dims=(0, 0))(xi_nodes, tau)
 
             nbn = xi_nodes.shape[1]
             if ph.npath > 0:
@@ -205,7 +220,7 @@ def make_jac_blocks(problem: Problem, layout: Layout) -> Callable:
                     t = (tau_k + 1.0) * (tf_ - t0_) / 2.0 + t0_
                     return _vector(ph.path(x, u, t, q_), z, pl.npath)
 
-                pblocks = vmap(jacfwd(node_path), in_dims=(0, 0))(xi_nodes, tau)
+                pblocks = vmap(_jacobian(node_path, z.dtype), in_dims=(0, 0))(xi_nodes, tau)
             else:
                 pblocks = z.new_zeros((pl.N, 0, nbn))
 
@@ -219,7 +234,7 @@ def make_jac_blocks(problem: Problem, layout: Layout) -> Callable:
                         z, pl.nevent,
                     )
 
-                eblock = jacfwd(ev)(_endpoint_vector(X, t0, tf, q))  # (nevent, ne)
+                eblock = _jacobian(ev, z.dtype)(_endpoint_vector(X, t0, tf, q))  # (nevent, ne)
             else:
                 eblock = z.new_zeros((0, ne))
             phase_blocks.append(
@@ -246,7 +261,7 @@ def make_jac_blocks(problem: Problem, layout: Layout) -> Callable:
                 )
 
             v = torch.cat([xfl, ql, x0r, qr])
-            link_blocks.append(jacfwd(lk)(v))
+            link_blocks.append(_jacobian(lk, z.dtype)(v))
         return phase_blocks, link_blocks
 
     return jac_blocks
@@ -301,7 +316,7 @@ def make_hess_blocks(
                 return val
 
             xi_nodes = _phase_node_inputs(pl, X, U, t0, tf, q)
-            hblocks = vmap(hessian(node_lag), in_dims=(0, 0, 0, 0, 0))(
+            hblocks = vmap(_hessian(node_lag, z.dtype), in_dims=(0, 0, 0, 0, 0))(
                 xi_nodes, tau, w, lam_def, lam_path
             )  # (N, nbn, nbn)
 
@@ -326,7 +341,7 @@ def make_hess_blocks(
                         )
                     return val
 
-                hend = hessian(end_lag)(_endpoint_vector(X, t0, tf, q))
+                hend = _hessian(end_lag, z.dtype)(_endpoint_vector(X, t0, tf, q))
             else:
                 hend = z.new_zeros((ne, ne))
             phase_h.append(PhaseHessBlocks(hblocks=hblocks, hend=hend))
@@ -359,7 +374,7 @@ def make_hess_blocks(
             if gauss_newton:   # linkage rows are constraints: no curvature
                 link_h.append(z.new_zeros((v.shape[0], v.shape[0])))
             else:
-                link_h.append(hessian(link_lag)(v))
+                link_h.append(_hessian(link_lag, z.dtype)(v))
         return phase_h, link_h
 
     return hess_blocks

@@ -15,7 +15,7 @@ in 18 iterations. The 3-phase decomposition with the derived singular
 surface ``m g = D (1 + v/c)`` (:func:`make_problem_three_phase`) recovers
 the published optimum in 6 iterations. The automatic workflow
 (:func:`solve_auto`: arc detection, then decomposition or continuation)
-is not ported yet.
+needs neither the surface nor the split.
 """
 
 from __future__ import annotations
@@ -154,13 +154,37 @@ def solve_auto(
     options: SolveOptions = None,
     method: str = "decompose",
     verbose: bool = False,
+    *,
+    decomposed_options: SolveOptions = None,
+    device=None,
+    dtype=torch.float64,
 ):
-    """Fully automatic singular-arc solve (regularized solve → arc detection
-    → per-arc decomposition or eps-continuation). It needs ``core/arcs.py``
-    and ``core/decompose.py``, which are not ported yet."""
-    raise NotImplementedError(
-        "goddard.solve_auto needs core/decompose.py (auto_singular_solve), which "
-        "belongs to the singular-arcs item of the port (ROADMAP Queue 1, item 15)")
+    """Fully automatic singular-arc solve — no user-chosen phase split.
+
+    Generic workflow (:func:`lpopc_tpu_torch.core.decompose.auto_singular_solve`):
+    regularized solve → arc detection → either the automatic per-arc
+    multi-phase decomposition with free switch times (default; it falls
+    back to the eps ladder when the decomposed solve does not converge, as
+    at the default degrees, in the JAX package too) or eps-continuation
+    (``method="continuation"``; every rung has the same functions, since
+    eps is a pinned parameter). ``decomposed_options``
+    (default :func:`three_phase_options`) solves the decomposed problem.
+    Every solve runs on ``device`` (``None`` means ``"cuda"``) in ``dtype``.
+    """
+    from ..core.decompose import auto_singular_solve
+
+    return auto_singular_solve(
+        make_regularized=lambda eps: make_problem_regularized(eps, degrees),
+        make_unregularized=lambda: make_problem(regularization=0.0),
+        u_bounds=(0.0, T_MAX),
+        options=options or auto_options(),
+        eps_schedule=eps_schedule,
+        method=method,
+        decomposed_options=decomposed_options or three_phase_options(),
+        verbose=verbose,
+        device=device,
+        dtype=dtype,
+    )
 
 
 def singular_surface(x):

@@ -19,9 +19,9 @@ p̄ = ((b-μ)/d)^{3/2} ≈ 17346 is the uncontrolled equilibrium; we start at
 p0 = p̄/2, q0 = p̄/4 with u_max = 75, a fixed 5-day treatment window, and
 dose budget A = 150 (chosen so the singular arc spans ~90% of the horizon
 and the budget binds near eps -> 0). The reference library has no
-counterpart for this problem class. The automatic workflow
-(:func:`solve_auto`) is not ported yet; :func:`make_problem_regularized`
-under :func:`auto_options` is its first rung.
+counterpart for this problem class. :func:`make_problem_regularized`
+under :func:`auto_options` is the first rung of the automatic workflow
+(:func:`solve_auto`).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 
 from ..ops.lgr import uniform_fractions
 from ..core.problem import Phase, Problem
-from ..core.solve import SolveOptions
+from ..core.solve import SolveOptions, solve as _solve  # noqa: F401  (module API, as in the JAX module)
 
 XI = 0.084
 B = 5.85
@@ -134,10 +134,27 @@ def solve_auto(
     options: SolveOptions = None,
     method: str = "continuation",
     verbose: bool = False,
+    *,
+    device=None,
+    dtype=torch.float64,
 ):
     """Automatic bang–singular solve via the generic detection workflow
-    (regularized solve → arc detection → eps-continuation). It needs
-    ``core/arcs.py`` and ``core/decompose.py``, which are not ported yet."""
-    raise NotImplementedError(
-        "tumor.solve_auto needs core/decompose.py (auto_singular_solve), which "
-        "belongs to the singular-arcs item of the port (ROADMAP Queue 1, item 15)")
+    (:func:`lpopc_tpu_torch.core.decompose.auto_singular_solve`; identical to
+    Goddard's, different physics — nothing here is problem-specific).
+    Default method is continuation: the tumor horizon is FIXED and the
+    singular arc spans ~90% of it, so freeing the switch times buys little;
+    ``method="decompose"`` is available and golden-tested too. Every solve
+    runs on ``device`` (``None`` means ``"cuda"``) in ``dtype``."""
+    from ..core.decompose import auto_singular_solve
+
+    return auto_singular_solve(
+        make_regularized=lambda eps: make_problem_regularized(eps, degrees),
+        make_unregularized=make_problem,
+        u_bounds=(0.0, 1.0),
+        options=options or auto_options(),
+        eps_schedule=eps_schedule,
+        method=method,
+        verbose=verbose,
+        device=device,
+        dtype=dtype,
+    )

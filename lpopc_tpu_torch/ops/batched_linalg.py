@@ -37,7 +37,8 @@ are not used here.
 
 Each wrapper counts its kernel launches in plain integer attributes:
 ``launches`` (all), ``launches_shared`` and ``launches_global`` (each
-variant), e.g. ``lane_cho_solve.launches_global``.
+variant), ``launches_f64`` and ``launches_f32`` (each element type), e.g.
+``lane_cho_solve.launches_global``.
 """
 
 from __future__ import annotations
@@ -115,15 +116,17 @@ def _global_scratch(B: int, device) -> torch.Tensor:
     return torch.empty(global_scratch_bytes(B), dtype=torch.uint8, device=device)
 
 
-def _count(wrapper, which: str):
+def _count(wrapper, which: str, dtype):
     wrapper.launches += 1
-    setattr(wrapper, f"launches_{which}", getattr(wrapper, f"launches_{which}") + 1)
+    for key in (which, _SUFFIX[dtype]):
+        setattr(wrapper, f"launches_{key}", getattr(wrapper, f"launches_{key}") + 1)
 
 
 def reset_launches():
     """Set every launch count of both wrappers to 0."""
     for w in (lane_cholesky, lane_cho_solve):
         w.launches = w.launches_shared = w.launches_global = 0
+        w.launches_f64 = w.launches_f32 = 0
 
 
 def _check_launch(code: int, what: str):
@@ -182,11 +185,8 @@ def lane_cholesky(K: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(K.data_ptr(), L.data_ptr(), B, n, K.stride(0), stream)
     _check_launch(code, f"lane_cholesky ({which})")
-    _count(lane_cholesky, which)
+    _count(lane_cholesky, which, K.dtype)
     return L
-
-
-lane_cholesky.launches = lane_cholesky.launches_shared = lane_cholesky.launches_global = 0
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -258,8 +258,8 @@ def lane_cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n,
                 L.stride(0), b.stride(0), stream)
     _check_launch(code, f"lane_cho_solve ({which})")
-    _count(lane_cho_solve, which)
+    _count(lane_cho_solve, which, L.dtype)
     return x
 
 
-lane_cho_solve.launches = lane_cho_solve.launches_shared = lane_cho_solve.launches_global = 0
+reset_launches()

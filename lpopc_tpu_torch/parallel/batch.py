@@ -12,8 +12,7 @@ itself carries the batch dimension (see :mod:`..core.ipm`), so this module
 only transcribes, scales and binds.
 
 Not ported yet (each raises ``NotImplementedError``): sharding the instance
-axis over several devices (``mesh=``), ``donate``, the f32→f64 ``two_stage``
-cascade, and the pin-sensitivity read-outs.
+axis over several devices (``mesh=``) and ``donate``.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.func import grad, vjp, vmap
 
 from ..core.ipm import IPMOptions, build_solver
 from ..core.problem import Problem
@@ -52,19 +52,53 @@ class BatchSolver:
     device: object = None
     dtype: object = torch.float64
     solver: Callable = None          # the bound core.ipm solve (carries host_syncs)
+    stage1_solver: Callable = None   # two_stage: the float32 stage's solve, else None
 
     def nominal_inputs(self, batch: int):
         s = self.scaled
         tile = lambda a: np.broadcast_to(np.asarray(a), (batch,) + np.asarray(a).shape).copy()
         return (tile(s.z0), tile(s.zl), tile(s.zu), tile(s.cl), tile(s.cu))
 
+    def _pin_sensitivities(self, res, rows: slice):
+        """dJ*/d(b) per instance for PINNED variables in ``rows`` — the
+        envelope theorem: the optimum moves by ∂L/∂z_i db when an equality
+        pin shifts, and for a fixed variable that multiplier is the reduced
+        gradient (∇f + Jᵀλ)_i at the solution (the IPM masks fixed rows out
+        of the bound-dual system entirely). One vmapped AD evaluation of the
+        UNSCALED NLP functions on the solver's device per call — no extra
+        solves. NaN where the variable is not pinned. ``res`` is any object
+        with batched ``z`` and ``lam`` (tensors or arrays, scaled space)."""
+        if not hasattr(self, "_sens_fn"):
+            obj, con = self.nlp.objective, self.nlp.constraints
+
+            def reduced_grad(z, lam):
+                _, vjp_c = vjp(con, z)
+                return grad(obj)(z) + vjp_c(lam)[0]
+
+            self._sens_fn = vmap(reduced_grad)
+        def t(a):
+            return torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a),
+                                   device=self.device, dtype=self.dtype)
+
+        z_raw = t(res.z) / t(self.scaled.var_scale)[None, :]
+        lam_raw = t(res.lam) * t(self.scaled.con_scale / self.scaled.obj_scale)[None, :]
+        sens = self._sens_fn(z_raw, lam_raw).detach().cpu().numpy()[:, rows]
+        pinned = (self.nlp.zu[rows] - self.nlp.zl[rows]) < 1e-12
+        return np.where(pinned[None, :], sens, np.nan)
+
     def x0_sensitivities(self, res, phase: int = 0):
-        raise NotImplementedError(
-            "pin sensitivities belong to the sensitivities slice of the port")
+        """(batch, nx) objective sensitivities dJ*/dx0 for pinned initial
+        states — the MPC/value-function gradient, read off the duals."""
+        pl = self.nlp.layout.phases[phase]
+        return self._pin_sensitivities(
+            res, slice(pl.var_offset, pl.var_offset + pl.nx)
+        )
 
     def q_sensitivities(self, res, phase: int = 0):
-        raise NotImplementedError(
-            "pin sensitivities belong to the sensitivities slice of the port")
+        """(batch, nq) design sensitivities dJ*/dq for pinned static
+        parameters (design variables frozen by equal bounds)."""
+        pl = self.nlp.layout.phases[phase]
+        return self._pin_sensitivities(res, pl.q_slice)
 
     def perturb_x0(self, batch: int, phase: int, deltas: np.ndarray):
         """Nominal inputs with the phase-``phase`` initial state shifted by
@@ -103,6 +137,22 @@ def make_batch_solver(
     ``device=None`` means ``"cuda"``: without a CUDA device this raises, it
     never carries on on the CPU. Pass ``device="cpu"`` to run the plain
     PyTorch versions of the kernels (the tests do).
+
+    ``two_stage=True`` runs each instance through a **mixed-precision
+    cascade**: stage 1 is the SAME interior-point method run entirely in
+    float32 down to ``stage1_tol`` (at most ``stage1_max_iter``
+    iterations, ``factor_dtype="f32"``); stage 2 re-runs the ``dtype``
+    solver warm-started from stage 1's primal/dual point (z, λ, z_L/z_U, and
+    μ from the carried complementarity) for the last Newton iterations to
+    the full tolerance; ``iterations`` is the sum of both. The f32 stage
+    cannot run the endgame itself: near the solution the condensed K's
+    condition number grows like O(1/μ) past f32's ~1/eps ≈ 1.7e7, and the
+    factorization-divergence inertia test (correctly) rejects every step.
+    Both stages share one scaling, computed once in ``dtype`` (stage 1's
+    functions are the same transcription in float32 under the same scale
+    vectors). The JAX package has the cascade because f64 is emulated on a
+    TPU; whether it pays where f64 is native is a measurement, not a
+    default.
     """
     from ..core.options import validate
 
@@ -114,10 +164,6 @@ def make_batch_solver(
     if donate:
         raise NotImplementedError(
             "donate belongs to the scale-out slice of the port")
-    if two_stage:
-        raise NotImplementedError(
-            "two_stage (the f32->f64 cascade) belongs to the "
-            "scale-out slice of the port")
     options = validate(options)
     nlp = transcribe(problem, device=device, dtype=dtype)
     scaled = scale_nlp(
@@ -128,23 +174,34 @@ def make_batch_solver(
     # the block path (n >= block_kkt_threshold under "auto", or "on") runs on
     # the per-node blocks alone: the dense assemblers are then not built
     sk = _kkt_structured(problem, nlp, options)
-    jac_fn = hess_fn = bound_sk = kkt_fact = None
-    if sk is not None:
-        bound_sk = _bind_fixed_mesh(sk, nlp, scaled, device, dtype)
-    else:
+
+    def bind(nlp_d, scaled_d, dt):
+        """(jac_fn, hess_fn, kkt_factorizer, structured_kkt) in ``dt``."""
+        if sk is not None:
+            return None, None, None, _bind_fixed_mesh(sk, nlp_d, scaled_d, device, dt)
+        jac_fn = hess_fn = None
         if getattr(options, "structured_derivatives", True):
             from ..core.structured import make_structured_hessian, make_structured_jacobian
 
-            jac_fn, hess_fn = scaled.wrap_structured(
+            jac_fn, hess_fn = scaled_d.wrap_structured(
                 make_structured_jacobian(
-                    problem, nlp.layout, nlp.ops, device=device, dtype=dtype),
+                    problem, nlp_d.layout, nlp_d.ops, device=device, dtype=dt),
                 make_structured_hessian(
-                    problem, nlp.layout, nlp.ops,
+                    problem, nlp_d.layout, nlp_d.ops,
                     gauss_newton=(options.hessian_approximation == "gauss-newton"),
-                    device=device, dtype=dtype,
+                    device=device, dtype=dt,
                 ),
             )
-        kkt_fact = _kkt_factorizer(nlp, options)
+        return jac_fn, hess_fn, _kkt_factorizer(nlp_d, options), None
+
+    def build(scaled_d, ipm, derivs):
+        jac_fn, hess_fn, kkt_fact, bound_sk = derivs
+        return build_solver(
+            scaled_d.objective, scaled_d.constraints, nlp.n, nlp.m, ipm,
+            jac_fn=jac_fn, hess_fn=hess_fn,
+            kkt_factorizer=kkt_fact, structured_kkt=bound_sk,
+        )
+
     ipm_base = options.ipm_options()
     if ipm_base.soc is None:
         # Lockstep sweep surface: every instance-iteration pays the
@@ -152,29 +209,49 @@ def make_batch_solver(
         # essentially always — resolve the surface default OFF here. Pass
         # IPMOptions(soc=True) to force it for hard sweeps.
         ipm_base = replace(ipm_base, soc=False)
-    solver = build_solver(
-        scaled.objective, scaled.constraints, nlp.n, nlp.m, ipm_base,
-        jac_fn=jac_fn, hess_fn=hess_fn,
-        kkt_factorizer=kkt_fact, structured_kkt=bound_sk,
-    )
 
-    def to_dev(a):
+    def to_dev(a, dt=dtype):
         if a is None:
             return None
         if isinstance(a, torch.Tensor):
-            return a.to(device=device, dtype=dtype)
-        return torch.as_tensor(np.asarray(a), device=device, dtype=dtype)
+            return a.to(device=device, dtype=dt)
+        return torch.as_tensor(np.asarray(a), device=device, dtype=dt)
 
-    def run(z0, zl, zu, cl, cu, lam0=None, zl_d=None, zu_d=None):
-        # warm-dual variant (receding-horizon re-solves): zl_d/zu_d carry the
-        # bound duals of the previous solve; the IPM then starts mu at the
-        # carried complementarity instead of mu_init.
-        return solver(
-            to_dev(z0), to_dev(zl), to_dev(zu), to_dev(cl), to_dev(cu),
-            lam0=to_dev(lam0), zl_d_init=to_dev(zl_d), zu_d_init=to_dev(zu_d),
-        )
+    stage1 = None
+    if two_stage:
+        f32 = torch.float32
+        nlp32 = transcribe(problem, device=device, dtype=f32)
+        scaled32 = scaled.rebind(nlp32.objective, nlp32.constraints, f32)
+        stage1 = build(scaled32, replace(
+            ipm_base, tol=stage1_tol, max_iter=stage1_max_iter,
+            factor_dtype="f32", record_history=False,
+        ), bind(nlp32, scaled32, f32))
+        solver = build(scaled, replace(ipm_base, kappa_1=1e-8), bind(nlp, scaled, dtype))
+
+        def run(z0, zl, zu, cl, cu, lam0=None, zl_d=None, zu_d=None):
+            if zl_d is not None:
+                raise ValueError("warm bound duals are not supported with two_stage")
+            args = [to_dev(a) for a in (z0, zl, zu, cl, cu)]
+            r1 = stage1(*(to_dev(a, f32) for a in args), lam0=to_dev(lam0, f32))
+            r2 = solver(
+                to_dev(r1.z), *args[1:], lam0=to_dev(r1.lam),
+                zl_d_init=to_dev(r1.zl_dual), zu_d_init=to_dev(r1.zu_dual),
+            )
+            return r2._replace(iterations=r1.iterations + r2.iterations)
+    else:
+        solver = build(scaled, ipm_base, bind(nlp, scaled, dtype))
+
+        def run(z0, zl, zu, cl, cu, lam0=None, zl_d=None, zu_d=None):
+            # warm-dual variant (receding-horizon re-solves): zl_d/zu_d carry
+            # the bound duals of the previous solve; the IPM then starts mu at
+            # the carried complementarity instead of mu_init.
+            return solver(
+                to_dev(z0), to_dev(zl), to_dev(zu), to_dev(cl), to_dev(cu),
+                lam0=to_dev(lam0), zl_d_init=to_dev(zl_d), zu_d_init=to_dev(zu_d),
+            )
 
     return BatchSolver(
         problem=problem, nlp=nlp, scaled=scaled, run=run, n=nlp.n, m=nlp.m,
         ipm_options=ipm_base, device=device, dtype=dtype, solver=solver,
+        stage1_solver=stage1,
     )

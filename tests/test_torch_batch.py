@@ -123,15 +123,13 @@ def test_perturb_x0_matches_reference(reference, port_solvers):
 
 
 def test_unported_surfaces_raise(port_solvers):
+    """``mesh=`` and ``donate`` belong to the scale-out slice; ``two_stage``
+    and the pin sensitivities are ported (tests/test_torch_mpc.py,
+    tests/test_torch_diff.py)."""
     problem = port_model.make_problem(degrees=(3, 3))
-    for kw in (dict(mesh=object()), dict(donate=True), dict(two_stage=True)):
+    for kw in (dict(mesh=object()), dict(donate=True)):
         with pytest.raises(NotImplementedError):
             make_batch_solver(problem, device="cpu", **kw)
-    bs = port_solvers["3x3_b4_lane"]
-    with pytest.raises(NotImplementedError):
-        bs.x0_sensitivities(None)
-    with pytest.raises(NotImplementedError):
-        bs.q_sensitivities(None)
 
 
 @pytest.mark.parametrize("assembly", ["direct", "dense"])

@@ -12,11 +12,10 @@ import torch
 import lpopc_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the models of the multi-phase slice, and the solve entry of each that has
-# one (tumor's only entry, solve_auto, is a stub)
+# the models of the multi-phase slice, and the solve entry of each
 MULTIPHASE_MODELS = {
     "launch": "solve", "boostbrake": "solve", "climb": "solve", "reentry": "solve",
-    "hangglider": "solve", "goddard": "solve_three_phase", "tumor": None,
+    "hangglider": "solve", "goddard": "solve_three_phase", "tumor": "solve_auto",
 }
 
 
@@ -39,6 +38,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert {"lpopc_tpu_torch.core.block_kkt", "lpopc_tpu_torch.core.kkt_blocks"} <= set(mods)
     assert {"lpopc_tpu_torch.ops.tables"} | {
         f"lpopc_tpu_torch.models.{m}" for m in MULTIPHASE_MODELS} <= set(mods)
+    assert {"lpopc_tpu_torch.core.arcs", "lpopc_tpu_torch.core.decompose",
+            "lpopc_tpu_torch.core.diff", "lpopc_tpu_torch.parallel.mpc"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
@@ -107,11 +108,16 @@ def test_model_solve_device_none_raises_without_cuda(model):
 
 @pytest.mark.parametrize("model", ["goddard", "tumor"])
 def test_solve_auto_is_a_stub_naming_its_item(model):
+    """Ported: ``solve_auto`` is no stub now. ``device=None`` means cuda, so
+    without one it raises before any solve, for both methods."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is honoured")
     import importlib
 
     mod = importlib.import_module(f"lpopc_tpu_torch.models.{model}")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 15"):
-        mod.solve_auto()
+    for method in ("decompose", "continuation"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.solve_auto(device=None, method=method)
 
 
 def test_kernel_wrappers_never_fall_back_for_a_non_cpu_tensor():
