@@ -53,7 +53,8 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
                     instances of the 2-phase boost-brake problem (n = 58),
                     through the shared variants; both sweeps hold every
                     instance's status, iterations and objective to the JAX
-                    package's (within its own spread where rounding decides);
+                    package's (within its own spread where rounding decides),
+                    each with one warm-up and one timed run;
 13. ``solve_multiphase`` single-problem solves on the kernel route: the
                     4-phase launch (mesh fixed), the boost-brake hp solve
                     (per-phase refinement) and the tabulated climb
@@ -79,6 +80,27 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
                     each, per step against the JAX package's statuses,
                     iterations and u0; the value gradient against finite
                     differences;
+18. ``utils``       the utilities: ``hp_solve``'s ph run writes its report
+                    and checkpoints (``report_file``, ``checkpoint_dir``):
+                    one checkpoint a grid, ``resume_problem`` back on the
+                    last grid's mesh, the report naming the JAX package's
+                    grid count, ``save_results``' file family read back;
+                    ``check_problem`` on every model; a ``device_profile``
+                    trace of one warm IPM iteration of the 512-instance
+                    sweep, which must name both kernels among its CUDA
+                    kernels;
+19. ``scale_out``   the scale-out solvers at world size 1 on NCCL
+                    (``parallel/distributed.py::initialize`` on a TCP
+                    rendezvous at 127.0.0.1): the 512-instance sweep through
+                    ``make_batch_solver(mesh=default_mesh())`` and
+                    ``make_distributed_batch_solver(...).run_local`` and
+                    with ``donate=True``, each bitwise equal to
+                    ``sweep_lane``'s result;
+                    ``make_segment_solver`` on the hp solve's last grid
+                    (resumed from its checkpoint: n = 4099, 128 segments,
+                    the block path) and ``make_hybrid_batch_solver`` on a
+                    (1, 1) ``("dp", "seg")`` mesh at 4 perturbed instances of
+                    it, each bitwise equal to the unsharded block solve;
 
 and prints one JSON line per phase, then a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": ...}``.
@@ -88,13 +110,18 @@ printed. Without a CUDA device it exits at once with an error.
 
 from __future__ import annotations
 
+import glob
+import importlib
 import json
 import os
+import pkgutil
 import re
+import socket
 from dataclasses import replace
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,7 +130,9 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device available (torch.cuda.is_available() is False)")
 
+from lpopc_tpu_torch import models as models_pkg
 from lpopc_tpu_torch.core import solve as solve_mod
+from lpopc_tpu_torch.core.check import check_problem
 from lpopc_tpu_torch.core.block_kkt import factor_from_blocks, make_block_spec
 from lpopc_tpu_torch.core.diff import DifferentiableSolver
 from lpopc_tpu_torch.core.ipm import MAX_ITER, SOLVED, IPMOptions
@@ -115,9 +144,14 @@ from lpopc_tpu_torch.core.transcribe import const_mesh, transcribe
 from lpopc_tpu_torch.models import (boostbrake, brachistochrone, climb, goddard, hypersensitive,
                                     launch, tumor)
 from lpopc_tpu_torch.ops import batched_linalg as bl
-from lpopc_tpu_torch.parallel.batch import make_batch_solver
+from lpopc_tpu_torch.parallel import distributed
+from lpopc_tpu_torch.parallel.batch import default_mesh, make_batch_solver
+from lpopc_tpu_torch.parallel.hybrid import hybrid_mesh, make_hybrid_batch_solver
 from lpopc_tpu_torch.parallel.mpc import MPCController
-from lpopc_tpu_torch.utils import build
+from lpopc_tpu_torch.parallel.segment import make_segment_solver, segment_mesh
+from lpopc_tpu_torch.utils import build, checkpoint
+from lpopc_tpu_torch.utils.resultfiles import save_results
+from lpopc_tpu_torch.utils.trace import device_profile
 
 DEVICE = torch.device("cuda", 0)
 
@@ -1087,7 +1121,8 @@ def phase_sweep(name: str, lane_kkt: bool, degrees=DEGREES, batch=BATCH,
 
     wall = statistics.median(walls)
     SWEEP_RESULTS[name] = {"objective": objective, "iters_p50": float(np.median(iterations)),
-                           "solves_per_s": batch * solved_frac / wall}
+                           "solves_per_s": batch * solved_frac / wall,
+                           "problem": problem, "options": options, "args": args, "res": res}
     emit(name, lane_kkt=lane_kkt, batch=batch, n=bs.n, m=bs.m,
          solved_frac=solved_frac, wall_s=wall, wall_s_runs=walls, warmup_s=warm_s,
          solves_per_s=batch * solved_frac / wall,
@@ -1153,7 +1188,9 @@ def phase_multiphase_sweep(name: str):
         raise AssertionError(f"{name}: (n, m) = {(bs.n, bs.m)}, JAX's {(ref['n'], ref['m'])}")
     args = tuple(torch.as_tensor(a, device=DEVICE, dtype=torch.float64)
                  for a in inputs(bs, batch))
-    res, walls, warm_s, launches, by_variant, host_syncs, outer = counted_runs(bs, args)
+    # one warm-up and one timed run (the script's longest sweeps); the
+    # per-instance checks hold the timed run
+    res, walls, warm_s, launches, by_variant, host_syncs, outer = counted_runs(bs, args, 1)
     status = res.status.cpu().numpy()
     iterations = res.iterations.cpu().tolist()
     objective = res.objective.cpu().numpy()
@@ -1302,14 +1339,19 @@ def phase_solve_multiphase():
 WRAPPERS = {"lane_cholesky": bl.lane_cholesky, "lane_cho_solve": bl.lane_cho_solve}
 
 
-def hp_solve(method: str, block: bool = False, off_grids=None):
+# each hp_solve's Solution and the report / checkpoint paths it wrote (ph)
+HP_SOLUTIONS = {}
+
+
+def hp_solve(method: str, block: bool = False, off_grids=None, outputs=None):
     """One hp-adaptive solve of the reference configuration, with its
     counted launches, walls and peak device memory per grid, checked against
     the JAX package's run. ``block``: the default block_kkt="auto", where
     grids with n >= BLOCK_THRESHOLD take the block path and must launch
     neither kernel nor allocate an (n, n) matrix in their IPM run;
     ``off_grids``: the per-grid lines of the block_kkt="off" run of the same
-    call, printed beside these."""
+    call, printed beside these. ``outputs``: ``report_file`` and
+    ``checkpoint_dir`` for the solve (phase ``utils`` reads them)."""
     ref = HP_BLOCK_REFERENCE if block else HP_REFERENCE[method]
     per_grid = []
     real, real_run = solve_mod.solve_on_mesh, solve_mod._run_and_extract
@@ -1345,7 +1387,7 @@ def hp_solve(method: str, block: bool = False, off_grids=None):
 
     options = SolveOptions(mesh_method=method, ipm=IPMOptions(tol=1e-8, max_iter=300,
                                                               lane_kkt=True),
-                           **(HP_BLOCK_OPTIONS if block else HP_OPTIONS))
+                           **(HP_BLOCK_OPTIONS if block else HP_OPTIONS), **(outputs or {}))
     problem = hypersensitive.make_problem(tf=5000.0)
     solve_mod.solve_on_mesh, solve_mod._run_and_extract = counted, ipm_memory
     try:
@@ -1361,6 +1403,7 @@ def hp_solve(method: str, block: bool = False, off_grids=None):
                 for k, w in WRAPPERS.items()}
 
     name = f"hp_solve{'_block' if block else ''}[{method}]"
+    HP_SOLUTIONS[name] = (sol, options)
     if sol.status != 1:
         raise AssertionError(f"{name}: status {sol.status}, expected 1 (solved)")
     if sol.grids != ref["grids"] or len(sol.grid_stats) != ref["grids"]:
@@ -1924,6 +1967,210 @@ def phase_mpc():
     return by_variant
 
 
+# phase utils: the hp_solve[ph] run writes its report and checkpoints here
+RESULT_FILES = sorted([f"{k}1.dat" for k in ("time", "state", "control", "parameter",
+                                             "costate", "Hamiltonian")] + ["summary.txt"])
+# the names the profiler must find among the CUDA kernels of one iteration
+PROFILE_KERNELS = ("lane_cholesky_kernel", "lane_cho_solve_kernel")
+
+
+def hp_outputs(tmp: str) -> dict:
+    return {"report_file": os.path.join(tmp, "hp_report.txt"),
+            "checkpoint_dir": os.path.join(tmp, "hp_checkpoints")}
+
+
+def phase_utils(tmp: str):
+    """The utilities on the card: hp_solve[ph]'s report and checkpoints (one
+    a grid; the resumed problem on the last grid's mesh; the report names
+    the JAX package's grid count), its result files, ``check_problem`` on
+    every model, and a ``device_profile`` trace of one warm IPM iteration of
+    the 512-instance sweep that names both kernels among its CUDA kernels.
+    Returns the profiled iteration's launches per variant and the problem
+    resumed on the last grid (phase scale_out solves it)."""
+    sol, options = HP_SOLUTIONS["hp_solve[ph]"]
+    ref = HP_REFERENCE["ph"]
+    t0 = time.perf_counter()
+    ckpts = sorted(glob.glob(os.path.join(options.checkpoint_dir, "grid_*.npz")))
+    if len(ckpts) != sol.grids:
+        raise AssertionError(f"utils: {len(ckpts)} checkpoints for {sol.grids} grids")
+    resumed, grid = checkpoint.resume_problem(hypersensitive.make_problem(tf=5000.0),
+                                              options.checkpoint_dir)
+    ph = resumed.phases[0]
+    if grid != sol.grids or ((tuple(ph.mesh_degrees), tuple(ph.mesh_fractions)),) != \
+            sol.mesh_history[-1]:
+        raise AssertionError(f"utils: resumed grid {grid} on a mesh other than grid "
+                             f"{sol.grids}'s")
+    with open(options.report_file) as f:
+        report = f.read()
+    grids_line = re.search(r"^grids\s+(\d+)$", report, re.M)
+    if grids_line is None or int(grids_line.group(1)) != ref["grids"]:
+        raise AssertionError(f"utils: the report does not name JAX's {ref['grids']} grids")
+    paths = save_results(sol, os.path.join(tmp, "results"))
+    if sorted(os.path.basename(p) for p in paths) != RESULT_FILES:
+        raise AssertionError(f"utils: result files {paths}")
+    x = np.loadtxt(os.path.join(tmp, "results", "state1.dat")).reshape(-1, 1)
+    if not np.array_equal(x, sol.phases[0].x):
+        raise AssertionError("utils: state1.dat does not read back as the solution's states")
+    files_s = time.perf_counter() - t0
+
+    checked = {}
+    for mod in pkgutil.iter_modules(models_pkg.__path__):
+        t1 = time.perf_counter()
+        model = importlib.import_module(f"lpopc_tpu_torch.models.{mod.name}")
+        check_problem(model.make_problem())           # device=None: the GPU
+        checked[mod.name] = time.perf_counter() - t1
+
+    sweep = SWEEP_RESULTS["sweep_lane"]
+    options1 = replace(sweep["options"], ipm=replace(sweep["options"].ipm, max_iter=1))
+    bs1 = make_batch_solver(sweep["problem"], options1)
+    bs1.run(*sweep["args"])                           # warm-up
+    torch.cuda.synchronize()
+    bl.reset_launches()
+    t1 = time.perf_counter()
+    with device_profile(os.path.join(tmp, "profile")) as prof:
+        bs1.run(*sweep["args"])
+    profiled_s = time.perf_counter() - t1
+    by_variant = by_variant_now()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    found = {k: sorted(n for n in names if k in n) for k in PROFILE_KERNELS}
+    if not all(found.values()):
+        raise AssertionError(f"utils: the trace names no {[k for k, v in found.items() if not v]}"
+                             f" among its {len(names)} CUDA kernel names")
+    if not all(sum(by.values()) for by in by_variant.values()):
+        raise AssertionError(f"utils: the profiled iteration launched {by_variant}")
+    span_us = (max(e["ts"] + e.get("dur", 0) for e in kernels) - min(e["ts"] for e in kernels))
+    busy_us = sum(e.get("dur", 0) for e in kernels)
+    emit("utils", grids=sol.grids, checkpoints=len(ckpts), resumed_grid=grid,
+         resumed_mesh=[int(ph.mesh_degrees[0]), len(ph.mesh_degrees)],
+         report_grids=int(grids_line.group(1)), result_files=len(paths), files_s=files_s,
+         check_problem_s=checked, profile_wall_s=profiled_s,
+         profile_trace_mb=os.path.getsize(prof.trace_path) / 2 ** 20,
+         profile_kernel_launches=len(kernels), profile_kernel_names=len(names),
+         profile_kernel_ms=busy_us / 1e3, profile_kernel_span_ms=span_us / 1e3,
+         profile_device_busy=busy_us / span_us, profile_kernels_found=found,
+         launches_by_variant=by_variant)
+    return by_variant, resumed
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def same_bits(name: str, got, want):
+    """Every result field of ``got`` bitwise equal to ``want``'s."""
+    for k in ("status", "iterations", "objective", "z", "lam"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"scale_out {name}: {k} differs from the unsharded run")
+
+
+def timed_run(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hybrid_inputs(bs, batch: int):
+    """tests/test_hybrid.py's perturbation: the pinned initial state moved by
+    0.05·i·var_scale (i = 0..batch-1)."""
+    z0, zl, zu, cl, cu = bs.nominal_inputs(batch)
+    pl = bs.nlp.layout.phases[0]
+    sl = slice(pl.var_offset, pl.var_offset + 1)
+    d = 0.05 * np.arange(batch)[:, None] * bs.scaled.var_scale[sl][None, :]
+    for a in (z0, zl, zu):
+        a[:, sl] += d
+    return tuple(torch.as_tensor(a, device=DEVICE, dtype=torch.float64)
+                 for a in (z0, zl, zu, cl, cu))
+
+
+SCALE_OUT_OPTIONS = SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=300, soc=False),
+                                 mesh_method="none", block_kkt="on")
+HYBRID_BATCH = 4
+
+
+def phase_scale_out(resumed):
+    """The scale-out solvers at world size 1 on NCCL: the 512-instance sweep
+    through ``make_batch_solver(mesh=default_mesh())``, through
+    ``make_distributed_batch_solver(...).run_local`` and with
+    ``donate=True`` (the result in z0's storage), bitwise equal to
+    sweep_lane's result; ``make_segment_solver`` on hp_solve's last grid
+    (resumed from its checkpoint: n = 4099, 128 segments, the block path),
+    bitwise equal to the unsharded block solve of the same problem; and
+    ``make_hybrid_batch_solver`` on a (1, 1) mesh at 4 perturbed instances
+    of that grid, bitwise equal to the unsharded batch. Returns each path's
+    launches per variant."""
+    distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0)   # NCCL on cuda:0
+    by_path, out = {}, {}
+    try:
+        sweep = SWEEP_RESULTS["sweep_lane"]
+        problem, options, args = sweep["problem"], sweep["options"], sweep["args"]
+        for name, make in (
+                ("mesh", lambda: make_batch_solver(problem, options, mesh=default_mesh()).run),
+                ("distributed", lambda: distributed.make_distributed_batch_solver(
+                    problem, options).run_local),
+                ("donate", lambda: make_batch_solver(problem, options, donate=True).run)):
+            run = make()
+            z0 = args[0].clone()                      # donated: holds the result after
+            bl.reset_launches()
+            res, wall = timed_run(lambda: run(z0, *args[1:]))
+            by_path[name] = by_variant_now()
+            same_bits(name, res, sweep["res"])
+            if name == "donate" and res.z.data_ptr() != z0.data_ptr():
+                raise AssertionError("scale_out donate: the result's z is not z0's storage")
+            out[f"{name}_wall_s"] = wall
+
+        plain_bs = make_batch_solver(resumed, SCALE_OUT_OPTIONS)
+        one = tuple(torch.as_tensor(a, device=DEVICE, dtype=torch.float64)
+                    for a in plain_bs.nominal_inputs(1))
+        plain, plain_s = timed_run(lambda: plain_bs.run(*one))
+        again, _ = timed_run(lambda: plain_bs.run(*one))
+        out["unsharded_block_repeatable"] = all(
+            torch.equal(getattr(plain, k), getattr(again, k)) for k in ("z", "lam", "iterations"))
+        seg_run = make_segment_solver(resumed, SCALE_OUT_OPTIONS, mesh=segment_mesh())
+        bl.reset_launches()
+        seg, seg_s = timed_run(seg_run)
+        by_path["segment"] = by_variant_now()
+        same_bits("segment", type(seg)(*(None if f is None else f[None] for f in seg)), plain)
+        if int(seg.status) != SOLVED:
+            raise AssertionError(f"scale_out segment: status {int(seg.status)}")
+        obj_rel = abs(float(seg.objective) / plain_bs.scaled.obj_scale - HP_REFERENCE["ph"][
+            "objective"]) / HP_REFERENCE["ph"]["objective"]
+        if not obj_rel <= HP_OBJECTIVE_RTOL:
+            raise AssertionError(f"scale_out segment: objective {obj_rel} from JAX's hp solve")
+
+        hb = make_hybrid_batch_solver(resumed, SCALE_OUT_OPTIONS, mesh=hybrid_mesh(1, 1))
+        hargs = hybrid_inputs(hb, HYBRID_BATCH)
+        hplain, hplain_s = timed_run(lambda: plain_bs.run(*hargs))
+        bl.reset_launches()
+        hyb, hyb_s = timed_run(lambda: hb.run(*hargs))
+        by_path["hybrid"] = by_variant_now()
+        same_bits("hybrid", hyb, hplain)
+        if not bool((hyb.status == SOLVED).all()):
+            raise AssertionError(f"scale_out hybrid: status {hyb.status.tolist()}")
+        for name in ("segment", "hybrid"):
+            if any(sum(by.values()) for by in by_path[name].values()):
+                raise AssertionError(f"scale_out {name}: the block path launched "
+                                     f"{by_path[name]}")
+    finally:
+        torch.distributed.destroy_process_group()
+    emit("scale_out", world_size=1, backend="nccl", sweep_batch=BATCH,
+         sweep_bitwise_equal_sweep_lane=True, segment_n=plain_bs.n,
+         segment_segments=len(resumed.phases[0].mesh_degrees),
+         segment_iterations=int(seg.iterations), segment_objective_rel_err_vs_jax=obj_rel,
+         segment_bitwise_equal_unsharded=True, segment_wall_s=seg_s,
+         unsharded_block_wall_s=plain_s, hybrid_batch=HYBRID_BATCH,
+         hybrid_iterations=hyb.iterations.tolist(), hybrid_bitwise_equal_unsharded=True,
+         hybrid_wall_s=hyb_s, unsharded_hybrid_inputs_wall_s=hplain_s,
+         launches_by_path=by_path, **out)
+    return by_path
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -1942,9 +2189,11 @@ def main():
     _, by_variant_large = phase_sweep(
         "sweep_lane_large", lane_kkt=True, degrees=DEGREES_LARGE, batch=BATCH_LARGE,
         reference=REFERENCE_OBJECTIVES_LARGE, expect=EXPECT_LANE_LARGE)
+    tmp = tempfile.TemporaryDirectory()   # report, checkpoints, result files, trace
     hp, hp_grids = {}, {}
     for method in ("ph", "hp-liu"):
-        hp[method], hp_grids[method] = hp_solve(method)
+        hp[method], hp_grids[method] = hp_solve(
+            method, outputs=hp_outputs(tmp.name) if method == "ph" else None)
     hp["block_ph"], _ = hp_solve("ph", block=True, off_grids=hp_grids["ph"])
     _, by_variant_block = phase_sweep(
         "sweep_block", lane_kkt=True, degrees=DEGREES_BLOCK, batch=BATCH_BLOCK,
@@ -1958,6 +2207,9 @@ def main():
     by_variant_sens = phase_sensitivities()
     by_variant_two_stage, by_dtype_two_stage = phase_sweep_two_stage()
     by_variant_mpc = phase_mpc()
+    by_variant_utils, resumed = phase_utils(tmp.name)
+    by_path_scale_out = phase_scale_out(resumed)
+    tmp.cleanup()
 
     source = "lpopc_tpu_torch/csrc/batched_linalg.cu"
     replaces = {"lane_cholesky": "lpopc_tpu/ops/batched_linalg.py:128",
@@ -1970,7 +2222,8 @@ def main():
                  **{f"solve_singular_{c}": by_variant_singular[c][k]
                     for c in by_variant_singular},
                  "sensitivities": by_variant_sens[k], "sweep_two_stage": by_variant_two_stage[k],
-                 "mpc_batch": by_variant_mpc[k]}
+                 "mpc_batch": by_variant_mpc[k], "utils_profiled_iteration": by_variant_utils[k],
+                 **{f"scale_out_{p}": by[k] for p, by in by_path_scale_out.items()}}
              for k in WRAPPERS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source, "replaces": replaces[k],

@@ -27,6 +27,12 @@ leading instance axis: ``K`` is (B, n, n), the blocks (B, S, b, b), the
 border (B, nb, nb), and :func:`make_block_factorizer`'s ``factor_ok`` gives
 one flag per instance. Cost per factorization is ``O(S·b³)`` batched plus
 one ``O(nb³)`` Schur factorization instead of the dense ``O(n³)``.
+
+The segment axis is the seam along which :mod:`..parallel.segment` splits
+one instance over ranks: under its policy the blocks are this rank's share,
+the border Schur matrix and right-hand side are summed over the ranks, and
+the interior solution is gathered (the ``seg_*`` hooks, no-ops outside a
+policy).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import numpy as np
 import torch
 
 from ..ops.blocked_chol import chol_and_inverse
+from ..parallel.segment import (seg_active, seg_constrain, seg_gather, seg_lead, seg_replicated,
+                                seg_share)
 from .transcribe import Layout
 
 
@@ -148,11 +156,20 @@ def factor_from_blocks(A, B, C) -> BlockFactor:
 
     Uses the recursive blocked factorization of :mod:`..ops.blocked_chol`
     (as the JAX package does) and stores explicit inverses, so every
-    downstream solve is a batched matvec."""
+    downstream solve is a batched matvec.
+
+    Under a segment-sharding policy ``A`` and ``B`` hold this rank's share
+    of the segments and ``C`` its partial of the border block; the Schur
+    matrix is summed over the ranks (one ``all_reduce``). A rank whose own
+    blocks failed sends NaN, so every rank's Schur factor fails with it and
+    :func:`make_block_factorizer`'s ``factor_ok`` agrees on every rank."""
     L, Li = chol_and_inverse(A)
     Ainv = Li.transpose(-1, -2) @ Li
     W = Ainv @ B.transpose(-1, -2)                            # (B, S, b, nb)
     Schur = C - torch.einsum("zsnb,zsbm->znm", B, W)
+    if seg_active():
+        own_ok = _diag_ok(L)
+        Schur = seg_replicated(torch.where(own_ok[:, None, None], Schur, float("nan")))
     Ls, Lsi = chol_and_inverse(Schur)
     Sinv = Lsi.transpose(-1, -2) @ Lsi
     return BlockFactor(L=L, W=W, Ls=Ls, B=B, Ainv=Ainv, Sinv=Sinv)
@@ -169,45 +186,52 @@ def make_block_factorizer(spec: BlockKKTSpec):
     by_device = {}
 
     def on(device):
-        """The spec's index arrays as tensors on ``device`` (made once)."""
-        key = str(device)
+        """The spec's index arrays as tensors on ``device`` (made once per
+        segment share): this rank's share ``ii``, ``mask`` and pair mask
+        (the whole spec outside a policy), the border, and the whole spec's
+        mask and valid interior indices, where the gathered solution lands."""
+        key = (str(device), seg_share(spec.num_blocks))
         if key not in by_device:
             t = lambda a: torch.as_tensor(a, device=device)
-            ii = t(spec.interior_idx.astype(np.int64))
-            mask = t(spec.interior_mask)
+            ii_all = t(spec.interior_idx.astype(np.int64))
+            mask_all = t(spec.interior_mask)
+            ii, mask = seg_constrain(ii_all), seg_constrain(mask_all)
             by_device[key] = (ii, mask, t(spec.border_idx.astype(np.int64)),
-                              mask[:, :, None] & mask[:, None, :], ii[mask])
+                              mask[:, :, None] & mask[:, None, :], mask_all,
+                              ii_all[mask_all])
         return by_device[key]
 
     def factorize(K):
-        ii, mask, bi, pair_mask, _ = on(K.device)
+        ii, mask, bi, pair_mask, _, _ = on(K.device)
         eye = torch.eye(spec.block_size, dtype=K.dtype, device=K.device)
         A = K[:, ii[:, :, None], ii[:, None, :]]              # (B, S, b, b)
         A = torch.where(pair_mask, A, eye)                    # pad slots -> identity
         Bm = K[:, bi[None, :, None], ii[:, None, :]]          # (B, S, nb, b)
         Bm = torch.where(mask[:, None, :], Bm, torch.zeros((), dtype=K.dtype, device=K.device))
-        C = K[:, bi[:, None], bi[None, :]]
+        C = seg_lead(K[:, bi[:, None], bi[None, :]])
         return factor_from_blocks(A, Bm, C)
 
     def solve(F, r):
-        ii, mask, bi, _, ii_valid = on(r.device)
+        ii, mask, bi, _, mask_all, ii_valid = on(r.device)
         zero = torch.zeros((), dtype=r.dtype, device=r.device)
         r_int = torch.where(mask, r[:, ii], zero)                         # (B, S, b)
         y = torch.einsum("zsij,zsj->zsi", F.Ainv, r_int)
-        rhs_b = r[:, bi] - torch.einsum("zsnb,zsb->zn", F.B, y)
+        rhs_b = seg_replicated(seg_lead(r[:, bi]) - torch.einsum("zsnb,zsb->zn", F.B, y))
         xb = torch.einsum("zij,zj->zi", F.Sinv, rhs_b)
-        xi = y - torch.einsum("zsbn,zn->zsb", F.W, xb)
+        xi = seg_gather(y - torch.einsum("zsbn,zn->zsb", F.W, xb), spec.num_blocks)
         out = torch.zeros_like(r)
         out[:, bi] = xb
-        out[:, ii_valid] = xi[:, mask]
+        out[:, ii_valid] = xi[:, mask_all]
         return out
 
     def factor_ok(F):
-        dL = torch.diagonal(F.L, dim1=-2, dim2=-1).flatten(1)
-        dS = torch.diagonal(F.Ls, dim1=-2, dim2=-1)
-        return (
-            torch.isfinite(dL).all(-1) & (dL > 0.0).all(-1)
-            & torch.isfinite(dS).all(-1) & (dS > 0.0).all(-1)
-        )
+        return _diag_ok(F.L) & _diag_ok(F.Ls)
 
     return factorize, solve, factor_ok
+
+
+def _diag_ok(L):
+    """(B,) whether every diagonal entry of the (B, ..., k, k) factors ``L``
+    is finite and positive."""
+    d = torch.diagonal(L, dim1=-2, dim2=-1).flatten(1)
+    return torch.isfinite(d).all(-1) & (d > 0.0).all(-1)

@@ -18,6 +18,12 @@ assembly + MUMPS, which never forms dense matrices —
   and node Hessians land in a local ``(bl, bl)`` stiffness via static index
   maps, then split into interior/border parts — O(S·b²) memory total.
 
+Under a segment-sharding policy (:mod:`..parallel.segment`) ``assemble``
+builds the per-segment tensors (``Jloc``/``Kloc``) and blocks of this rank's
+share of the segments only, pads the share with identity blocks, and gives
+the border block as this rank's partial (the border's own terms on the lead
+rank); :func:`.block_kkt.factor_from_blocks` sums it over the ranks.
+
 Counterpart of the JAX package's ``core/kkt_blocks.py``. Every closure
 takes and returns tensors with a leading instance axis (B); the per-node
 blocks come from the single-instance functions of :mod:`.structured` lifted
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ..parallel.segment import seg_is_lead, seg_lead, seg_share
 from .block_kkt import BlockKKTSpec, factor_from_blocks, make_block_factorizer
 from .problem import Problem
 from .structured import (
@@ -230,6 +237,15 @@ def _link_border_pos(problem, layout, maps):
     return out
 
 
+def _local_maps(mp: _PhaseMaps, lo: int, hi: int) -> _PhaseMaps:
+    """``mp`` cut to the global segments ``[lo, hi)`` (this rank's share)."""
+    a = min(max(lo - mp.seg_off, 0), mp.nseg)
+    b = min(max(hi - mp.seg_off, 0), mp.nseg)
+    per_seg = {f: getattr(mp, f)[a:b] for f in _PhaseMaps._fields
+               if f not in ("epos", "erow_glob", "seg_off", "nseg")}
+    return mp._replace(**per_seg, seg_off=mp.seg_off + a, nseg=b - a)
+
+
 def _as_tensor(a, device):
     """Index maps as int64 (masks stay bool); python ints pass through."""
     if not isinstance(a, np.ndarray):
@@ -408,11 +424,15 @@ def make_structured_kkt(
         zi4 = zi[:, None, None, None]
         zi3 = zi[:, None, None]
         A_parts, B_parts = [], []
-        C = torch.diag_embed(wdiag[:, c["border_idx"]])
+        lo, hi, slots = seg_share(spec.num_blocks)
+        lead = seg_is_lead()
+        C = seg_lead(torch.diag_embed(wdiag[:, c["border_idx"]]))
         for pl, mp, pb, phb, D, nidx, eidx in zip(
             layout.phases, c["maps"], jb["phase"], hb["phase"], sh.D,
             c["node_idx"], c["end_idx"]
         ):
+            if (lo, hi) != (0, spec.num_blocks):
+                mp = _local_maps(mp, lo, hi)
             S, degmax = mp.node_of.shape
             nx, npath = pl.nx, pl.npath
             ar = lambda k: torch.arange(k, device=dev)
@@ -483,7 +503,9 @@ def make_structured_kkt(
             _scatter_add(C, (zi4, mp.border_pos[None, :, :, None],
                              mp.border_pos[None, :, None, :]),
                          CL * bm[:, :, None] * bm[:, None, :])
-            # endpoint Hessian + event rows (border-only)
+            if not lead:
+                continue
+            # endpoint Hessian + event rows (border-only; the lead rank's)
             epos_r, epos_c = mp.epos[None, :, None], mp.epos[None, None, :]
             hend_s = phb.hend * vinv[eidx][:, None] * vinv[eidx][None, :]
             _scatter_add(C, (zi3, epos_r, epos_c), hend_s)
@@ -493,6 +515,14 @@ def make_structured_kkt(
                 d_ev = d[:, mp.erow_glob]
                 _scatter_add(C, (zi3, epos_r, epos_c),
                              torch.einsum("zri,zr,zrj->zij", eb_s, d_ev, eb_s))
+        if slots > hi - lo:
+            # pad this rank's share with identity blocks and zero coupling
+            pad = slots - (hi - lo)
+            eye = torch.eye(bmax, dtype=dtype, device=dev)
+            A_parts.append(eye.expand(Z, pad, bmax, bmax).clone())
+            B_parts.append(torch.zeros((Z, pad, nb, bmax), dtype=dtype, device=dev))
+        if not lead:
+            return torch.cat(A_parts, dim=1), torch.cat(B_parts, dim=1), C
         # linkage rows + Hessians (border-only)
         for link, loff, lb_, hl, lidx, lpos in zip(
             problem.linkages, layout.link_offsets, jb["link"], hb["link"],

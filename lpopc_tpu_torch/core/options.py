@@ -108,12 +108,12 @@ _BY_NAME = {s.name: s for s in REGISTRY}
 # derivative-checker machinery, doc/LpopcDoc.tex:1203-1267). Accepted and
 # ignored with a log message so reference configurations port unchanged;
 # the capability they configured is strictly subsumed (torch.func grad/jacfwd/
-# hessian are exact).
+# hessian are exact; core/check.py validates user functions).
 _OBSOLETE = {
     "first-derive": "derivatives are exact AD (no FD/analytic switch needed)",
     "finite-difference-tol": "no finite differencing is performed",
-    "analytic-derive-check": "validate user functions against finite differences by hand",
-    "analytic-derive-check-tol": "validate user functions against finite differences by hand",
+    "analytic-derive-check": "use lpopc_tpu_torch.core.check.check_problem",
+    "analytic-derive-check-tol": "use lpopc_tpu_torch.core.check.check_problem",
 }
 
 

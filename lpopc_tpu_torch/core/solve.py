@@ -27,8 +27,9 @@ dense J, H or K, and the dense Hessian assembler is not built), or gathered
 out of the dense K (``"dense"``). Such a grid launches neither kernel of
 :mod:`..ops.batched_linalg`, as in the JAX package.
 
-Not ported yet, and raising ``NotImplementedError``: the ``report_file`` /
-``checkpoint_dir`` outputs (ROADMAP Queue 1, item 18).
+``report_file`` writes the combined report of :mod:`..utils.report` after
+the hp loop, and ``checkpoint_dir`` one :mod:`..utils.checkpoint` file per
+grid, in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -618,15 +619,12 @@ def solve(problem: Problem, options: SolveOptions = SolveOptions(), *,
     """Full hp-adaptive solve (the reference's outer refinement loop), on
     ``device`` (``None`` means ``"cuda"``, and raises without one)."""
     device = resolve_device(device)
+    sol = _solve_hp(problem, options, device=device, dtype=dtype)
     if options.report_file:
-        raise NotImplementedError(
-            "report_file (utils/report.py) belongs to the utilities item of "
-            "the port (ROADMAP Queue 1, item 18)")
-    if options.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir (utils/checkpoint.py) belongs to the utilities "
-            "item of the port (ROADMAP Queue 1, item 18)")
-    return _solve_hp(problem, options, device=device, dtype=dtype)
+        from ..utils.report import write_report
+
+        write_report(sol, options.report_file, problem=problem, options=options)
+    return sol
 
 
 def _solve_hp(problem: Problem, options: SolveOptions, *, device, dtype) -> Solution:
@@ -736,6 +734,10 @@ def _solve_hp(problem: Problem, options: SolveOptions, *, device, dtype) -> Solu
         sol.grids = grid + 1
         sol.mesh_history = list(mesh_history)
         sol.grid_stats = grid_stats
+        if options.checkpoint_dir:
+            from ..utils.checkpoint import save_checkpoint
+
+            save_checkpoint(sol, problem, options.checkpoint_dir, grid + 1)
         if sol.status != SOLVED and prev_sol is not None:
             # Keep the last converged grid rather than refining garbage
             # (the reference aborts with an exception here; we return the

@@ -11,8 +11,16 @@ is pure data parallelism: every instance shares the solver; per-instance
 itself carries the batch dimension (see :mod:`..core.ipm`), so this module
 only transcribes, scales and binds.
 
-Not ported yet (each raises ``NotImplementedError``): sharding the instance
-axis over several devices (``mesh=``) and ``donate``.
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, e.g. from
+:func:`default_mesh`) the instance axis is split over the mesh's ranks: one
+rank drives one GPU, and a mesh of n ranks is n processes, each of which
+calls ``run`` with the same global inputs. Each rank solves its contiguous
+slice of the instances with no collective during the solve, and one
+``all_gather`` per result field then gives every rank the full result — what
+the JAX package's globally sharded ``run`` returns. In the JAX package the
+sharded ``while_loop`` runs until every instance of the global batch is done;
+here each rank stops when its own slice is, which changes nothing per
+instance, since a frozen instance keeps its result.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import grad, vjp, vmap
 
 from ..core.ipm import IPMOptions, build_solver
@@ -29,7 +38,7 @@ from ..core.problem import Problem
 from ..core.scaling import scale_nlp
 from ..core.solve import SolveOptions, _bind_fixed_mesh, _kkt_factorizer, _kkt_structured
 from ..core.transcribe import transcribe
-from ..utils.device import resolve_device
+from ..utils.device import device_mesh, resolve_device
 
 
 @dataclass
@@ -53,6 +62,9 @@ class BatchSolver:
     dtype: object = torch.float64
     solver: Callable = None          # the bound core.ipm solve (carries host_syncs)
     stage1_solver: Callable = None   # two_stage: the float32 stage's solve, else None
+    # the same solve of this rank's own instances, with no collective (what
+    # ``run`` calls on its slice under ``mesh=``; ``run`` itself otherwise)
+    run_local: Callable = None
 
     def nominal_inputs(self, batch: int):
         s = self.scaled
@@ -153,17 +165,23 @@ def make_batch_solver(
     vectors). The JAX package has the cascade because f64 is emulated on a
     TPU; whether it pays where f64 is native is a measurement, not a
     default.
+
+    ``mesh`` (a ``DeviceMesh`` of any axis names) splits the instance axis
+    over all its ranks, in mesh order (module docstring): the batch must
+    divide the number of ranks, every rank passes the same global inputs
+    and gets the whole result, and warm bound duals raise ``ValueError``,
+    as in the JAX package.
+
+    ``donate=True`` is the JAX package's ``donate_argnums=(0,)``: ``run``
+    may write its result into ``z0``'s storage, and the caller must not
+    read ``z0`` afterwards. Here the result's ``z`` IS ``z0`` (the same
+    storage, holding the solution; the solver's own buffer is freed), so
+    ``z0`` must be a tensor on the solver's device in its dtype with the
+    result's shape; anything else raises ``ValueError``.
     """
     from ..core.options import validate
 
     device = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding the instance axis over devices) belongs to the "
-            "scale-out slice of the port")
-    if donate:
-        raise NotImplementedError(
-            "donate belongs to the scale-out slice of the port")
     options = validate(options)
     nlp = transcribe(problem, device=device, dtype=dtype)
     scaled = scale_nlp(
@@ -250,8 +268,84 @@ def make_batch_solver(
                 lam0=to_dev(lam0), zl_d_init=to_dev(zl_d), zu_d_init=to_dev(zu_d),
             )
 
+    run_local = run
+    if mesh is not None:
+        run = _instance_sharded(run_local, mesh)
+    if donate:
+        run, run_local = _donating(run, device, dtype), _donating(run_local, device, dtype)
     return BatchSolver(
         problem=problem, nlp=nlp, scaled=scaled, run=run, n=nlp.n, m=nlp.m,
         ipm_options=ipm_base, device=device, dtype=dtype, solver=solver,
-        stage1_solver=stage1,
+        stage1_solver=stage1, run_local=run_local,
     )
+
+
+def _gather_rows(t, group, size):
+    """``t`` of every rank of ``group``, concatenated along the instance axis."""
+    if isinstance(t, dict):
+        return {k: _gather_rows(v, group, size) for k, v in t.items()}
+    if t is None:
+        return None
+    send = t.contiguous()
+    if send.dtype == torch.bool:    # not every backend gathers bool
+        send = send.to(torch.uint8)
+    parts = [torch.empty_like(send) for _ in range(size)]
+    dist.all_gather(parts, send, group=group)
+    return torch.cat(parts).to(t.dtype)
+
+
+def _instance_sharded(run_local, mesh):
+    """``run`` over the global batch: this rank's contiguous slice through
+    ``run_local``, then one ``all_gather`` per result field over the mesh's
+    ranks (in mesh order)."""
+    ranks = mesh.mesh.flatten().tolist()
+    group = None if ranks == list(range(dist.get_world_size())) else dist.new_group(ranks)
+    pos, size = ranks.index(dist.get_rank()), len(ranks)
+
+    def run(z0, zl, zu, cl, cu, lam0=None, zl_d=None, zu_d=None):
+        if zl_d is not None:
+            raise ValueError("warm bound duals are not supported with two_stage/mesh")
+        batch = z0.shape[0]
+        if batch % size:
+            raise ValueError(f"the batch of {batch} instances does not divide the mesh's "
+                             f"{size} ranks")
+        rows = slice(pos * batch // size, (pos + 1) * batch // size)
+        res = run_local(*(a[rows] for a in (z0, zl, zu, cl, cu)),
+                        lam0=None if lam0 is None else lam0[rows])
+        return type(res)(*(_gather_rows(f, group, size) for f in res))
+
+    return run
+
+
+def _donating(run, device, dtype):
+    """``run`` with its result's ``z`` written into ``z0``'s storage."""
+    def donated(z0, *args, **kw):
+        if not (isinstance(z0, torch.Tensor) and z0.to(device=device, dtype=dtype) is z0):
+            raise ValueError("donate=True needs z0 as a tensor on the solver's device "
+                             f"({device}) in its dtype ({dtype})")
+        res = run(z0, *args, **kw)
+        if res.z.shape != z0.shape:
+            raise ValueError(f"donate=True: z0 {tuple(z0.shape)} cannot hold the result "
+                             f"{tuple(res.z.shape)}")
+        z0.copy_(res.z)
+        return res._replace(z=z0)
+
+    return donated
+
+
+def default_mesh(axis_name: str = "dp", devices=None, *, device=None):
+    """1-D ``DeviceMesh`` named ``axis_name`` over the ranks ``devices``
+    (default: every rank of the default process group). ``device`` (``None``
+    means ``"cuda"``, and raises without one) picks the mesh's device type."""
+    device = resolve_device(device)   # before any process-group call
+    ranks = list(devices) if devices is not None else list(range(dist.get_world_size()))
+    return device_mesh(device, ranks, (axis_name,))
+
+
+def instance_grid_mesh(n_dp: int, n_sp: int, devices=None, *, device=None):
+    """2D mesh for large sweeps: the instance grid is split over both axes
+    (``("dp", "sp")``, the first ``n_dp * n_sp`` ranks of ``devices``)."""
+    device = resolve_device(device)   # before any process-group call
+    ranks = list(devices) if devices is not None else list(range(dist.get_world_size()))
+    grid = np.asarray(ranks[: n_dp * n_sp]).reshape(n_dp, n_sp)
+    return device_mesh(device, grid.tolist(), ("dp", "sp"))

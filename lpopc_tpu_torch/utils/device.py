@@ -16,3 +16,15 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' explicitly to run the plain PyTorch versions"
         )
     return dev
+
+
+def device_mesh(device, ranks, names):
+    """A ``torch.distributed`` ``DeviceMesh`` of the ranks ``ranks`` (a
+    nested list: one level per name in ``names``) on ``device``'s type
+    (resolved by :func:`resolve_device`). One rank drives one device, so a
+    mesh of n ranks is n processes; every rank of the default process group
+    builds it together."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(resolve_device(device).type, torch.as_tensor(ranks, dtype=torch.int64),
+                      mesh_dim_names=tuple(names))

@@ -6,10 +6,8 @@ Counterpart of the reference's RAII ``LP_DBG_START_FUN`` tracer
 ``LPOPC_REPORT_DBG_MSG`` is defined). Here: a decorator + context manager
 enabled by ``LPOPC_TPU_TRACE=1`` (or :func:`enable_trace`), writing to the
 "lpopc_tpu_torch.trace" logger; :func:`scope` also labels the block in a
-``torch.profiler`` trace.
-
-Device-side profile capture (``device_profile``) belongs to the utilities
-item of the port (ROADMAP Queue 1, item 18) and raises until then.
+``torch.profiler`` trace, and :func:`device_profile` captures one (the JAX
+package's ``jax.profiler`` helper) as a Chrome trace JSON file.
 """
 
 from __future__ import annotations
@@ -21,6 +19,8 @@ import os
 import time
 
 import torch
+
+from .device import resolve_device
 
 _trace_logger = logging.getLogger("lpopc_tpu_torch.trace")
 _ENABLED = bool(os.environ.get("LPOPC_TPU_TRACE"))
@@ -97,8 +97,29 @@ def scope(name: str):
                                 time.perf_counter() - t0)
 
 
-def device_profile(logdir: str):
-    """Device trace capture around a block: not ported yet."""
-    raise NotImplementedError(
-        "device_profile belongs to the utilities item of the port "
-        "(ROADMAP Queue 1, item 18)")
+@contextlib.contextmanager
+def device_profile(logdir: str, *, device=None):
+    """``torch.profiler`` trace capture around a block, written under
+    ``logdir`` as a Chrome trace JSON file (open it in Perfetto or
+    ``chrome://tracing``).
+
+    Host (CPU) activity is always recorded, CUDA activity when ``device`` is
+    a CUDA device (``None`` means ``"cuda"``, and raises without one). The
+    :func:`scope` spans appear in the trace by name. Yields the
+    ``torch.profiler.profile`` object (``key_averages()`` after the block);
+    its ``trace_path`` attribute names the file once the block has ended.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    device = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with profile(activities=activities) as prof:
+        yield prof
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)
+    prof.trace_path = path

@@ -122,14 +122,31 @@ def test_perturb_x0_matches_reference(reference, port_solvers):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
 
 
-def test_unported_surfaces_raise(port_solvers):
-    """``mesh=`` and ``donate`` belong to the scale-out slice; ``two_stage``
-    and the pin sensitivities are ported (tests/test_torch_mpc.py,
-    tests/test_torch_diff.py)."""
+def test_unported_surfaces_raise(reference, port_solvers):
+    """Ported: ``mesh=`` and ``donate`` work; here at world size 1 on the CPU
+    (a one-process gloo group), each against the JAX package's sweep
+    (multi-rank runs: tests/test_torch_scaleout.py)."""
+    import torch.distributed as tdist
+
+    from lpopc_tpu_torch.parallel import distributed
+    from lpopc_tpu_torch.parallel.batch import default_mesh
+
+    _, args, want = reference["3x3_b4_lane"]
     problem = port_model.make_problem(degrees=(3, 3))
-    for kw in (dict(mesh=object()), dict(donate=True)):
-        with pytest.raises(NotImplementedError):
-            make_batch_solver(problem, device="cpu", **kw)
+    options = SolveOptions(ipm=IPMOptions(tol=1e-8, max_iter=60, lane_kkt=True))
+    distributed.initialize(device="cpu")
+    try:
+        for kw in (dict(mesh=default_mesh(device="cpu")), dict(donate=True)):
+            bs = make_batch_solver(problem, options, device="cpu", **kw)
+            z0 = torch.as_tensor(args[0])
+            got = _fields(bs.run(z0, *args[1:]))
+            assert np.array_equal(got["status"], want["status"])
+            assert np.array_equal(got["iterations"], want["iterations"])
+            np.testing.assert_allclose(got["objective"], want["objective"], rtol=OBJ_TOL)
+            if "donate" in kw:
+                np.testing.assert_array_equal(z0.numpy(), got["z"])   # z0 holds the result
+    finally:
+        tdist.destroy_process_group()
 
 
 @pytest.mark.parametrize("assembly", ["direct", "dense"])

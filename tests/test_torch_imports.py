@@ -40,6 +40,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
         f"lpopc_tpu_torch.models.{m}" for m in MULTIPHASE_MODELS} <= set(mods)
     assert {"lpopc_tpu_torch.core.arcs", "lpopc_tpu_torch.core.decompose",
             "lpopc_tpu_torch.core.diff", "lpopc_tpu_torch.parallel.mpc"} <= set(mods)
+    assert {"lpopc_tpu_torch.core.check", "lpopc_tpu_torch.utils.checkpoint",
+            "lpopc_tpu_torch.utils.report", "lpopc_tpu_torch.utils.resultfiles",
+            "lpopc_tpu_torch.utils.plot", "lpopc_tpu_torch.parallel.segment",
+            "lpopc_tpu_torch.parallel.hybrid", "lpopc_tpu_torch.parallel.distributed",
+            } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"

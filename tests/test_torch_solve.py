@@ -11,6 +11,7 @@ The README goldens at full size are long on the CPU and marked ``slow``.
 """
 
 import importlib
+import os
 from dataclasses import replace
 
 import numpy as np
@@ -251,11 +252,23 @@ def test_block_path_matches_reference(monkeypatch, what):
 
 @pytest.mark.parametrize("what", ["report_file", "checkpoint_dir"])
 def test_unported_surfaces_raise(what, tmp_path):
+    """Ported: ``report_file`` and ``checkpoint_dir`` no longer raise; each
+    writes its files (their contents against the JAX package's:
+    tests/test_torch_utils.py)."""
     _, port_problem = problems("brysondenham_none")
     kw = {"report_file": dict(report_file=str(tmp_path / "r.txt")),
-          "checkpoint_dir": dict(checkpoint_dir=str(tmp_path))}[what]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        solve(port_problem, port_options("brysondenham_none", False, **kw), device="cpu")
+          "checkpoint_dir": dict(checkpoint_dir=str(tmp_path / "ckpt"))}[what]
+    sol = solve(port_problem, port_options("brysondenham_none", False, **kw), device="cpu")
+    assert sol.status == SOLVED and sol.grids == 1
+    if what == "report_file":
+        text = (tmp_path / "r.txt").read_text()
+        assert "NLP solves (hp loop):" in text and "status            SOLVED (1)" in text
+    else:
+        from lpopc_tpu_torch.utils.checkpoint import load_checkpoint
+
+        assert sorted(os.listdir(tmp_path / "ckpt")) == ["grid_001.npz"]
+        data, meta = load_checkpoint(str(tmp_path / "ckpt" / "grid_001.npz"))
+        assert meta["grid"] == 1 and np.array_equal(data["z"], sol.z)
 
 
 def test_default_device_is_the_gpu():
